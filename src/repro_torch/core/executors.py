@@ -1,0 +1,143 @@
+"""MeshNet inference executors — counterpart of ``repro/core/executors.py``.
+
+Every executor exposes ``apply(params, x, cfg, precision=...) -> logits``
+with ``x: (B, D, H, W[, C])`` and logits ``(B, D, H, W, num_classes)``,
+equal to ``meshnet.apply`` in eval mode, the leading ``B`` a true batch
+axis. Built-in executors, with the reference backend each is held to
+(``REFERENCE_NAMES``):
+
+  ``torch``      — the plain forward, ``meshnet.apply`` (reference ``xla``):
+                   the parity oracle, on any device.
+  ``cuda_fused`` — ``ops.meshnet_apply``, one fused conv+BN+ReLU kernel
+                   launch per hidden layer (reference ``pallas_fused``).
+                   On CPU tensors the kernel's plain version runs.
+
+``"auto"`` resolves per device: ``cuda_fused`` on CUDA, ``torch`` on the
+CPU. ``streaming_apply`` is what mode ``"streaming"`` runs; for both
+backends it is the same forward, since eager PyTorch frees each layer's
+activation when the next one replaces it, so memory does not grow with
+depth (``core/streaming.py`` comes with a later slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core import meshnet
+from repro_torch.core.meshnet import MeshNetConfig
+from repro_torch.kernels import ops, quantize
+
+ApplyFn = Callable[..., torch.Tensor]
+BytesFn = Callable[..., Optional[int]]
+
+#: the port's backend names -> the reference backends they are held to.
+REFERENCE_NAMES = {"torch": "xla", "cuda_fused": "pallas_fused"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutorSpec:
+    """One inference backend. ``hbm_bytes(cfg, vol, batch=1,
+    precision="fp32")`` will price the schedule's device-memory traffic;
+    None for both backends until the port has byte models of its own."""
+
+    name: str
+    apply: ApplyFn
+    streaming_apply: ApplyFn
+    description: str = ""
+    hbm_bytes: Optional[BytesFn] = None
+
+
+_REGISTRY: dict[str, ExecutorSpec] = {}
+_BOUND: dict[tuple[str, str, str], Callable] = {}
+
+#: the name PipelineConfig defaults to; resolved per device at run time.
+AUTO = "auto"
+
+
+def register(spec: ExecutorSpec) -> ExecutorSpec:
+    _REGISTRY[spec.name] = spec
+    for key in [k for k in _BOUND if k[0] == spec.name]:
+        _BOUND.pop(key, None)
+    return spec
+
+
+def names() -> list[str]:
+    """Registered executor names (stable order of registration)."""
+    return list(_REGISTRY)
+
+
+def default_executor(device=None) -> str:
+    """``cuda_fused`` on a CUDA device, ``torch`` on the CPU. ``device=None``
+    asks whether this host has a card."""
+    if device is None:
+        cuda = torch.cuda.is_available()
+    else:
+        cuda = torch.device(device).type == "cuda"
+    return "cuda_fused" if cuda else "torch"
+
+
+def resolve(name: Optional[str], *, device=None) -> str:
+    """Map None/"auto" to the device's default; validate explicit names."""
+    if name is None or name == AUTO:
+        return default_executor(device)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown executor {name!r}; registered: {sorted(_REGISTRY)} (or 'auto')")
+    return name
+
+
+def get(name: Optional[str], *, device=None) -> ExecutorSpec:
+    """Fetch an executor spec, resolving "auto"."""
+    return _REGISTRY[resolve(name, device=device)]
+
+
+def apply(name: Optional[str], params, x: torch.Tensor, cfg: MeshNetConfig, precision: str = "fp32") -> torch.Tensor:
+    """One-shot dispatch of ``x`` through the named executor."""
+    return get(name, device=x.device).apply(params, x, cfg, precision=precision)
+
+
+def bound_apply(
+    name: Optional[str], schedule: str = "apply", precision: str = "fp32", *, device=None
+) -> Callable[[Any, torch.Tensor, MeshNetConfig], torch.Tensor]:
+    """The executor's forward with its precision bound in, as a 3-arg
+    ``(params, x, cfg)`` callable, cached per (executor, schedule,
+    precision). ``schedule="streaming"`` selects ``streaming_apply``."""
+    if schedule not in ("apply", "streaming"):
+        raise ValueError(f"schedule must be 'apply' or 'streaming', got {schedule!r}")
+    quantize.validate(precision)
+    key = (resolve(name, device=device), schedule, precision)
+    if key not in _BOUND:
+        spec = _REGISTRY[key[0]]
+        fn = spec.apply if schedule == "apply" else spec.streaming_apply
+
+        def bound(params, x, cfg, _fn=fn, _p=precision):
+            return _fn(params, x, cfg, precision=_p)
+
+        _BOUND[key] = bound
+    return _BOUND[key]
+
+
+def _torch_apply(params, x, cfg, precision: str = "fp32"):
+    quantize.validate(precision)
+    return meshnet.apply(params, x, cfg)
+
+
+register(
+    ExecutorSpec(
+        name="torch",
+        apply=_torch_apply,
+        streaming_apply=_torch_apply,
+        description="plain PyTorch forward (meshnet.apply); parity oracle",
+    )
+)
+
+register(
+    ExecutorSpec(
+        name="cuda_fused",
+        apply=ops.meshnet_apply,
+        streaming_apply=ops.meshnet_apply,
+        description="fused CUDA conv+BN+ReLU kernel per layer",
+    )
+)

@@ -1,0 +1,170 @@
+"""The Brainchop pipeline in PyTorch — counterpart of ``repro/core/pipeline.py``.
+
+conform -> [brain-mask -> crop] -> inference (full | streaming) -> argmax
+-> connected-components filtering -> uncrop, on one device.
+
+Inference dispatches through the executor registry (core/executors.py):
+``"auto"`` is ``cuda_fused`` (one fused kernel launch per layer) on the
+card and ``torch`` (the plain forward) on the CPU. The executor and
+precision that ran are stamped on the telemetry record, and each stage is
+timed into it; on the card every stage ends in a synchronisation so the
+times cover the work, not its launch.
+
+Not ported yet: ``mode="subvolume"`` (the patching slice) and
+``shard_devices > 1`` (the multi-GPU slice) raise ``ValueError``.
+Otherwise ``run`` never raises on a budget or degenerate-volume failure:
+it returns a failed record.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import resolve_device, synchronize
+from repro_torch.core import components, conform as conform_mod, cropping, executors
+from repro_torch.core.meshnet import MeshNetConfig
+from repro_torch.kernels import quantize
+from repro_torch.telemetry.budget import BudgetExceeded, MemoryBudget
+from repro_torch.telemetry.record import StageTimes, TelemetryRecord
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """End-to-end pipeline options (one Brainchop 'model card')."""
+
+    name: str = "gwm_light"
+    model: MeshNetConfig = dataclasses.field(default_factory=MeshNetConfig)
+    volume_shape: tuple[int, int, int] = (256, 256, 256)
+    # inference mode: "full" | "streaming" ("subvolume" is not ported yet)
+    mode: str = "full"
+    # forward implementation: "auto" | "torch" | "cuda_fused"
+    executor: str = executors.AUTO
+    # slab count for multi-GPU sharding; only None or 1 in this slice
+    shard_devices: Optional[int] = None
+    # storage policy (kernels/quantize.py): "auto" resolves to fp32
+    precision: str = quantize.AUTO
+    use_cropping: bool = False
+    crop_margin: int = 4
+    min_component_size: int = 64
+    postprocess: bool = True
+    budget: Optional[MemoryBudget] = None
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    segmentation: Optional[torch.Tensor]
+    record: TelemetryRecord
+
+
+def _now() -> float:
+    return time.perf_counter()
+
+
+def run(
+    cfg: PipelineConfig,
+    params: Any,
+    vol,
+    *,
+    mask_model: Optional[tuple[Any, MeshNetConfig]] = None,
+    voxel_size=(1.0, 1.0, 1.0),
+    device=None,
+) -> PipelineResult:
+    """Run the pipeline on one raw (D, H, W) volume (tensor or numpy) on
+    ``device`` (None: the CUDA card, which must exist). ``params`` and the
+    mask model's params must already be on that device."""
+    dev = resolve_device(device)
+    if cfg.mode == "subvolume":
+        raise ValueError(
+            "mode='subvolume' is not ported yet: it comes with the patching "
+            "slice of the port (ROADMAP Queue 1, item 10)"
+        )
+    if cfg.shard_devices is not None and cfg.shard_devices > 1:
+        raise ValueError(
+            "shard_devices > 1 is not ported yet: it comes with the multi-GPU "
+            "slice of the port (ROADMAP Queue 1, item 14)"
+        )
+    times = StageTimes()
+    precision = quantize.resolve_precision(cfg.precision, cfg.model)
+    exec_name = executors.resolve(cfg.executor, device=dev)
+    rec = TelemetryRecord(
+        model=cfg.name,
+        mode=cfg.mode,
+        status="ok",
+        times=times,
+        executor=exec_name,
+        precision=precision,
+        params_bytes=quantize.model_params_bytes(cfg.model, precision),
+        memory_budget_bytes=None if cfg.budget is None else cfg.budget.bytes_limit,
+        collective_bytes_modeled=0,
+    )
+    budget = cfg.budget or MemoryBudget.unlimited()
+    act_bytes = quantize.act_bytes(precision)
+    try:
+        # --- Stage 1: preprocessing (to the device, conform) ---------------
+        t0 = _now()
+        vol = torch.as_tensor(vol, dtype=torch.float32, device=dev)
+        x = conform_mod.conform(vol, cfg.volume_shape, voxel_size)
+        synchronize(dev)
+        times.preprocessing = _now() - t0
+
+        crop_start = None
+        full_shape = tuple(x.shape)
+        # --- Stage 2: cropping (optional) ------------------------------------
+        if cfg.use_cropping and mask_model is not None:
+            t0 = _now()
+            mparams, mcfg = mask_model
+            budget.charge_inference(x.shape, mcfg, dtype_bytes=act_bytes)
+            mask_logits = executors.bound_apply(exec_name, precision=precision)(
+                mparams, x[None], mcfg
+            )
+            mask = torch.argmax(mask_logits[0], -1) > 0
+            mask = components.largest_component(mask)
+            size = cropping.pick_crop_size(mask, margin=cfg.crop_margin)
+            x, crop_start = cropping.crop_to(x, mask, size)
+            synchronize(dev)
+            times.cropping = _now() - t0
+            rec.crop_size = size
+
+        # --- Stage 3: inference ----------------------------------------------
+        t0 = _now()
+        if cfg.mode == "streaming":
+            budget.charge_streaming(x.shape, cfg.model, dtype_bytes=act_bytes)
+            schedule = "streaming"
+        else:  # full
+            budget.charge_inference(x.shape, cfg.model, dtype_bytes=act_bytes)
+            schedule = "apply"
+        logits = executors.bound_apply(exec_name, schedule, precision)(
+            params, x[None], cfg.model
+        )[0]
+        synchronize(dev)
+        times.inference = _now() - t0
+
+        seg = torch.argmax(logits, dim=-1).to(torch.int32)
+        del logits
+
+        # --- Stage 4: postprocessing (connected components) -------------------
+        if cfg.postprocess:
+            t0 = _now()
+            seg = components.filter_segmentation(seg, cfg.model.num_classes, cfg.min_component_size)
+            synchronize(dev)
+            times.postprocessing = _now() - t0
+
+        if crop_start is not None:
+            seg = cropping.uncrop(seg, crop_start, full_shape)
+
+        rec.status = "ok"
+        return PipelineResult(segmentation=seg, record=rec)
+
+    except BudgetExceeded as e:
+        rec.status = "fail"
+        rec.fail_type = e.fail_type
+        return PipelineResult(segmentation=None, record=rec)
+    except conform_mod.DegenerateVolumeError:
+        times.preprocessing = _now() - t0
+        rec.status = "fail"
+        rec.fail_type = "degenerate_volume"
+        return PipelineResult(segmentation=None, record=rec)

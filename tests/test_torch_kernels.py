@@ -1,0 +1,177 @@
+"""Port kernels on the CPU (their plain path) against the reference: K1's
+wrapper against repro.kernels.ref and the Pallas K1 in interpret mode,
+and the fused forward against repro.core.meshnet.apply."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import meshnet as ref_meshnet
+from repro.kernels import dilated_conv3d as ref_conv_kernel
+from repro.kernels import ref as ref_kernels
+from repro_torch import bridge
+from repro_torch.core import executors, meshnet
+from repro_torch.kernels import dilated_conv3d as conv_kernel
+from repro_torch.kernels import ops, quantize
+
+ODD_SHAPE = (1, 10, 12, 14)
+KERNEL_ATOL = 5e-5  # tests/test_kernels.py
+FUSED_ATOL = 2e-4  # tests/test_executors.py
+
+
+def _conv_inputs(seed, shape, cin, cout):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = rng.standard_normal(shape + (cin,)).astype(f32)
+    w = (rng.standard_normal((3, 3, 3, cin, cout)) * 0.2).astype(f32)
+    b = (rng.standard_normal(cout) * 0.1).astype(f32)
+    s = (0.5 + rng.random(cout)).astype(f32)
+    o = (rng.standard_normal(cout) * 0.1).astype(f32)
+    return x, w, b, s, o
+
+
+def _np_params(cfg, seed):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    layers, cin, c = [], cfg.in_channels, cfg.channels
+    for _ in cfg.dilations:
+        layer = {
+            "w": (rng.standard_normal((3, 3, 3, cin, c)) * np.sqrt(2.0 / (27 * cin))).astype(f32),
+            "b": (0.1 * rng.standard_normal(c)).astype(f32),
+        }
+        if cfg.use_batchnorm:
+            layer["bn_scale"] = (1.0 + 0.2 * rng.standard_normal(c)).astype(f32)
+            layer["bn_bias"] = (0.1 * rng.standard_normal(c)).astype(f32)
+            layer["bn_mean"] = (0.3 * rng.standard_normal(c)).astype(f32)
+            layer["bn_var"] = (0.5 + rng.random(c)).astype(f32)
+        layers.append(layer)
+        cin = c
+    head = {
+        "w": (rng.standard_normal((1, 1, 1, c, cfg.num_classes)) * np.sqrt(2.0 / c)).astype(f32),
+        "b": (0.1 * rng.standard_normal(cfg.num_classes)).astype(f32),
+    }
+    return {"layers": layers, "head": head}
+
+
+def _port_cfg(ref_cfg):
+    fields = {f.name: getattr(ref_cfg, f.name) for f in dataclasses.fields(meshnet.MeshNetConfig)}
+    return meshnet.MeshNetConfig(**fields)
+
+
+class TestDilatedConv3D:
+    @pytest.mark.parametrize("affine", [False, True])
+    @pytest.mark.parametrize("cin,cout", [(1, 5), (5, 5), (21, 21)])
+    @pytest.mark.parametrize("dilation", [1, 2, 4, 8, 16])
+    def test_against_reference_oracle(self, dilation, cin, cout, affine):
+        x, w, b, s, o = _conv_inputs(dilation * 31 + cin, (2, 9, 10, 11), cin, cout)
+        kw = dict(dilation=dilation, fuse_affine=affine)
+        ref_kw = dict(kw, scale=jnp.asarray(s), offset=jnp.asarray(o)) if affine else kw
+        expect = ref_kernels.dilated_conv3d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), **ref_kw)
+        port_kw = dict(kw, scale=torch.from_numpy(s), offset=torch.from_numpy(o)) if affine else kw
+        before = conv_kernel.launches
+        got = ops.dilated_conv3d(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), **port_kw)
+        assert conv_kernel.launches == before  # the CPU path launches nothing
+        assert got.shape == (2, 9, 10, 11, cout)
+        np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=KERNEL_ATOL)
+
+    def test_against_pallas_k1_interpret(self):
+        # The TPU kernel itself, one fused layer at 8^3 in interpret mode.
+        x, w, b, s, o = _conv_inputs(11, (1, 8, 8, 8), 5, 5)
+        expect = ref_conv_kernel.dilated_conv3d(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), dilation=2,
+            scale=jnp.asarray(s), offset=jnp.asarray(o), fuse_affine=True,
+            block=8, interpret=True,
+        )
+        got = ops.dilated_conv3d(
+            torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), dilation=2,
+            scale=torch.from_numpy(s), offset=torch.from_numpy(o), fuse_affine=True,
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=KERNEL_ATOL)
+
+    def test_four_dim_input_gets_a_channel(self):
+        x, w, b, _, _ = _conv_inputs(2, ODD_SHAPE, 1, 5)
+        t = torch.from_numpy(x)
+        got = ops.dilated_conv3d(t[..., 0], torch.from_numpy(w), torch.from_numpy(b), dilation=2)
+        assert torch.equal(got, ops.dilated_conv3d(t, torch.from_numpy(w), torch.from_numpy(b), dilation=2))
+
+    @pytest.mark.parametrize(
+        "xs,ws,bs,dilation",
+        [
+            ((1, 4, 4, 4), (3, 3, 3, 5, 5), (5,), 1),  # no channel axis
+            ((1, 4, 4, 4, 5), (3, 3, 3, 4, 5), (5,), 1),  # Cin mismatch
+            ((1, 4, 4, 4, 5), (1, 1, 1, 5, 5), (5,), 1),  # not 3x3x3
+            ((1, 4, 4, 4, 5), (3, 3, 3, 5, 5), (4,), 1),  # bias width
+            ((1, 4, 4, 4, 5), (3, 3, 3, 5, 5), (5,), 0),  # dilation < 1
+        ],
+    )
+    def test_wrapper_rejects_what_the_kernel_does_not_take(self, xs, ws, bs, dilation):
+        with pytest.raises(ValueError):
+            conv_kernel.dilated_conv3d(
+                torch.zeros(xs), torch.zeros(ws), torch.zeros(bs), dilation=dilation
+            )
+
+    def test_weights_fit_one_block_of_shared_memory(self):
+        # the widest hidden layer (21 -> 21) stages 47.6 KB of weights
+        assert conv_kernel.smem_bytes(21, 21) == (27 * 21 * 21 + 3 * 21) * 4
+        assert conv_kernel.smem_bytes(21, 21) < conv_kernel.SMEM_LIMIT
+        assert conv_kernel.smem_bytes(128, 21) > conv_kernel.SMEM_LIMIT
+
+
+class TestFusedForward:
+    """ops.meshnet_apply (the cuda_fused backend, plain path on the CPU)
+    against the reference's oracle, repro.core.meshnet.apply."""
+
+    @pytest.mark.parametrize("name", sorted(ref_meshnet.PAPER_MODELS))
+    def test_paper_models(self, name):
+        ref_cfg = dataclasses.replace(ref_meshnet.PAPER_MODELS[name], dilations=(1, 2, 4))
+        self._parity(ref_cfg, ODD_SHAPE, seed=3)
+
+    def test_no_batchnorm(self):
+        self._parity(ref_meshnet.MeshNetConfig(dilations=(1, 2, 4), use_batchnorm=False), ODD_SHAPE, seed=4)
+
+    def test_full_schedule_batched_odd(self):
+        self._parity(ref_meshnet.MeshNetConfig(), (2, 9, 17, 13), seed=5)
+
+    def _parity(self, ref_cfg, shape, seed):
+        tree = _np_params(ref_cfg, seed)
+        x = np.random.default_rng(seed + 1).standard_normal(shape).astype(np.float32)
+        expect = ref_meshnet.apply(jax.tree.map(jnp.asarray, tree), jnp.asarray(x), ref_cfg)
+        got = executors.apply(
+            "cuda_fused", bridge.params_from_numpy(tree, "cpu"), torch.from_numpy(x), _port_cfg(ref_cfg)
+        )
+        np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=FUSED_ATOL)
+
+    def test_fold_batchnorm_matches_reference(self):
+        from repro.kernels import ops as ref_ops
+
+        layer = _np_params(ref_meshnet.MeshNetConfig(dilations=(1,)), seed=6)["layers"][0]
+        expect = ref_ops.fold_batchnorm(jax.tree.map(jnp.asarray, layer))
+        got = ops.fold_batchnorm(bridge.params_from_numpy(layer, "cpu"))
+        for g, e in zip(got, expect):
+            np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-6)
+
+
+class TestPrecisionPolicy:
+    def test_auto_is_fp32_and_reduced_precisions_wait(self):
+        assert quantize.resolve_precision(None) == "fp32"
+        assert quantize.resolve_precision("auto", meshnet.PAPER_MODELS["atlas_104"]) == "fp32"
+        for name in ("bf16", "int8w"):
+            with pytest.raises(ValueError, match="quantize slice"):
+                quantize.resolve_precision(name)
+        with pytest.raises(ValueError, match="unknown precision"):
+            quantize.validate("fp8")
+        assert quantize.act_bytes("fp32") == 4
+
+    @pytest.mark.parametrize("name", sorted(ref_meshnet.PAPER_MODELS))
+    def test_model_params_bytes_matches_reference(self, name):
+        from repro.kernels import quantize as ref_quantize
+
+        cfg = meshnet.PAPER_MODELS[name]
+        expect = ref_quantize.model_params_bytes(ref_meshnet.PAPER_MODELS[name], "fp32")
+        assert quantize.model_params_bytes(cfg, "fp32") == expect
+        tree = _np_params(cfg, seed=0)
+        assert expect == sum(a.nbytes for a in jax.tree.leaves(tree))

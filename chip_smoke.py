@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's segmentation main path on one CUDA card.
+"""Drive the PyTorch port's segmentation main paths on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # tiny shapes, plain paths, CPU
 
-Phases, each printed on lines of its own:
+The port has two kernel-backed forwards: ``cuda_fused`` (K1, the fused
+dilated conv, one launch per layer) and ``cuda_megakernel`` (K2, the
+depth-first segment kernel, one launch per segment of a plan). Phases,
+each printed on lines of its own:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
-2. build    nvcc builds every kernel source of the port, timed, with
-            ptxas' register and shared-memory report
-3. parity   K1 (the fused dilated conv) against its plain PyTorch version
-            on the card, relative error <= 5e-5 of the output's magnitude
-4. forward  gwm_light at 256^3: the kernel-backed forward against the
-            plain forward, logits within 2e-4 relative, argmax agreeing on
-            >= 99.99 % of voxels
+2. build    nvcc builds every kernel source of the port, all at once,
+            timed, with ptxas' register and shared-memory report
+3. parity   K1 against its plain PyTorch version on the card, relative
+            error <= 5e-5 of the output's magnitude; then K2 segment by
+            segment against its plain version (same staging arrays in,
+            borders filled with NaN), <= 5e-5, over widths 5/10/18/21,
+            heads of 2/3/50/104 classes, batch 2 at odd shapes, and plans
+            forced to several segments by small shared-memory budgets
+4. forward  gwm_light at 256^3 against the plain forward: the K1 forward
+            within 2e-4 and the K2 forward within 1e-4 relative, argmax
+            agreeing on >= 99.99 % of voxels
 5. serve    SegmentationEngine.submit on 3 synthetic volumes (one raw
-            shape non-cubic), brain_mask_fast as the crop model; each
-            request must run executor cuda_fused and launch K1 exactly 18
-            times (9 mask layers + 9 main layers). This is the main path:
-            launch counts are zeroed just before it and read just after.
-            One more request runs under torch.profiler: device time by
-            kernel and the share of the request the card was busy.
-6. times    CUDA-event medians of 20 runs at the main path's layer shapes:
-            kernel, plain version, F.conv3d (TF32 off), and the bound
+            shape non-cubic), brain_mask_fast as the crop model:
+            5a  executor cuda_fused, K1 launched exactly 18 times a request
+                (9 mask layers + 9 main layers);
+            5b  executor cuda_megakernel, K2 launched exactly (mask plan's
+                segments + main plan's segments) times a request and K1
+                never; each segmentation agrees with executor torch on
+                >= 99.99 % of voxels.
+            Each of 5a and 5b is a main path: every launch count is set to
+            0 just before it and read just after. One more request of each
+            runs under torch.profiler: device time by kernel and the share
+            of the request the card was busy.
+6. times    CUDA-event medians of 20 runs: K1 at the main path's layer
+            shapes (kernel, plain, F.conv3d with TF32 off, bound); K2 per
+            segment of the 256^3 plan (kernel, plain, bound), and the d = 4
+            one-layer segment at tiles 16^3, 32^3, 64^3; the whole forwards
 6b. kernels one JSON line describing every ported kernel
 7. ok       the last line, {"ok": true, "device": {...}}
 
@@ -37,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,10 +69,12 @@ from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
 from repro_torch.data import mri  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import dilated_conv3d as k1  # noqa: E402
+from repro_torch.kernels import megakernel as k2  # noqa: E402
 from repro_torch.serving.engine import SegmentationEngine  # noqa: E402
 
 KERNEL_REL_TOL = 5e-5
-FORWARD_REL_TOL = 2e-4
+FORWARD_REL_TOL = 2e-4  # the fused forward (tests/test_executors.py)
+MEGA_FORWARD_REL_TOL = 1e-4  # the megakernel forward (tests/test_megakernel.py)
 ARGMAX_AGREE = 0.9999
 SEED = 0
 
@@ -161,7 +178,7 @@ def phase_build() -> None:
     seconds = _build.build_all()
     print(f"built {sorted(seconds)} in {time.perf_counter() - t0:.2f} s wall; per source: {seconds}")
     for name in seconds:
-        report = [line for line in _build.build_log(name).splitlines() if "ptxas" in line]
+        report = [line for line in _build.build_log(name).splitlines() if "ptxas" in line or "spill" in line]
         print(f"-- {name}.cu ptxas:\n" + "\n".join(report))
 
 
@@ -191,27 +208,132 @@ def phase_parity(dev) -> tuple[float, float]:
     return worst_abs, worst_rel
 
 
+def written(pln, i: int) -> tuple:
+    """Index of the region of segment i's output array that K2 writes."""
+    o = pln.out_halo(i)
+    return (slice(None),) + tuple(slice(o, o + p) for p in pln.padded(pln.segments[i])) + (slice(None),)
+
+
+def with_nan_border(t: torch.Tensor, region: tuple) -> torch.Tensor:
+    """A copy of staging array ``t`` whose border (all but ``region``) is NaN."""
+    out = torch.full_like(t, float("nan"))
+    out[region] = t[region]
+    return out
+
+
+def k2_stagings(pln, params, cfg, x: torch.Tensor):
+    """Yield (i, input staging, layers, head) for every segment of ``pln``,
+    each input the kernel's output of the segment before, its border NaN."""
+    first = pln.segments[0]
+    h = first.halo
+    act = torch.full((x.shape[0],) + tuple(p + 2 * h for p in pln.padded(first)) + (x.shape[-1],),
+                     float("nan"), device=x.device)
+    act[:, h : h + pln.vol[0], h : h + pln.vol[1], h : h + pln.vol[2], :] = x
+    for i, seg in enumerate(pln.segments):
+        layers, head = ops.megakernel_operands(params, cfg, seg)
+        yield i, act, layers, head
+        if i + 1 < len(pln.segments):
+            act = with_nan_border(k2.run_segment(act, pln, i, layers, head), written(pln, i))
+
+
+def phase_parity_k2(dev) -> tuple[float, float]:
+    print("== phase 3b: K2 parity against the plain version (card), segment by segment, NaN borders")
+    gen = torch.Generator().manual_seed(SEED + 33)
+    M = meshnet.MeshNetConfig
+    cases = [  # (config, (B, D, H, W), shared-memory budget)
+        (meshnet.PAPER_MODELS["gwm_light"], (1, 64, 64, 64), k2.SMEM_BUDGET),
+        (meshnet.PAPER_MODELS["brain_mask_fast"], (2, 37, 45, 29), k2.SMEM_BUDGET),
+        (M(channels=5, num_classes=2, dilations=(1, 1, 2, 1)), (2, 30, 26, 29), k2.SMEM_BUDGET),
+        (M(channels=10, num_classes=2, dilations=(1, 2, 4, 8, 16, 8, 4, 2, 1)), (1, 48, 48, 48), 60_000),
+        (M(channels=10, num_classes=50, dilations=(1, 2, 1, 1)), (2, 33, 20, 27), k2.SMEM_BUDGET),
+        (M(channels=18, num_classes=104, dilations=(1, 2, 4, 2, 1)), (1, 40, 40, 40), k2.SMEM_BUDGET),
+        (M(channels=21, num_classes=3, dilations=(1, 2, 4, 2, 1)), (2, 37, 45, 29), 120_000),
+    ]
+    worst_abs = worst_rel = 0.0
+    for cfg, shape, budget in cases:
+        params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
+        x = torch.rand(shape + (cfg.in_channels,), generator=gen).to(dev)
+        pln = k2.plan_for_config(cfg, shape[1:], smem_budget=budget, batch=shape[0])
+        for i, act, layers, head in k2_stagings(pln, params, cfg, x):
+            seg = pln.segments[i]
+            got = k2.run_segment(act, pln, i, layers, head)[written(pln, i)]
+            torch.cuda.synchronize()
+            expect = ref.megakernel_segment(act, pln, i, layers, head)[written(pln, i)]
+            check(bool(torch.isfinite(got).all()), f"K2 output finite at {shape} segment {i}")
+            abs_err, rel = rel_err(got, expect)
+            print(f"K2 C={cfg.channels} classes={cfg.num_classes} {shape} budget {budget} segment {i}/{len(pln.segments)} "
+                  f"dilations {seg.dilations} tile {seg.tile} head {seg.fuse_head}: max_abs_err {abs_err:.3e} rel {rel:.3e}")
+            check(rel <= KERNEL_REL_TOL, f"K2 rel err {rel} > {KERNEL_REL_TOL} at {shape} segment {i}")
+            worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
 def phase_forward(dev, size: int) -> None:
-    print(f"== phase 4: gwm_light forward at {size}^3, kernel path vs plain path")
+    print(f"== phase 4: gwm_light forward at {size}^3, kernel paths vs plain path")
     cfg = meshnet.PAPER_MODELS["gwm_light"]
     gen = torch.Generator().manual_seed(SEED + 4)
     params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
     vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
     x = conform.conform(vol, (size,) * 3)[None]
-    got = ops.meshnet_apply(params, x, cfg)
     expect = meshnet.apply(params, x, cfg)
-    check(bool(torch.isfinite(got).all()), "forward logits are finite")
-    check(tuple(got.shape) == (1, size, size, size, cfg.num_classes), f"logits shape {tuple(got.shape)}")
-    abs_err, rel = rel_err(got, expect)
-    disagree = int((got.argmax(-1) != expect.argmax(-1)).sum())
-    agree = 1.0 - disagree / got[..., 0].numel()
-    print(f"logits max_abs_err {abs_err:.3e} rel {rel:.3e}; argmax disagrees on {disagree} voxels ({agree:.6%} agree)")
-    check(rel <= FORWARD_REL_TOL, f"forward rel err {rel} > {FORWARD_REL_TOL}")
-    check(agree >= ARGMAX_AGREE, f"argmax agreement {agree} < {ARGMAX_AGREE}")
+    pln = k2.plan_for_config(cfg, (size,) * 3)
+    print(f"megakernel plan: {[(s.dilations, s.tile) for s in pln.segments]}; "
+          f"modeled bytes {pln.hbm_bytes()}; multiply-adds {pln.operations()}")
+    for name, fn, tol in (("cuda_fused", ops.meshnet_apply, FORWARD_REL_TOL),
+                          ("cuda_megakernel", ops.meshnet_apply_megakernel, MEGA_FORWARD_REL_TOL)):
+        got = fn(params, x, cfg)
+        check(bool(torch.isfinite(got).all()), f"{name} forward logits are finite")
+        check(tuple(got.shape) == (1, size, size, size, cfg.num_classes), f"{name} logits shape {tuple(got.shape)}")
+        abs_err, rel = rel_err(got, expect)
+        disagree = int((got.argmax(-1) != expect.argmax(-1)).sum())
+        agree = 1.0 - disagree / got[..., 0].numel()
+        print(f"{name}: logits max_abs_err {abs_err:.3e} rel {rel:.3e}; argmax disagrees on {disagree} voxels ({agree:.6%} agree)")
+        check(rel <= tol, f"{name} forward rel err {rel} > {tol}")
+        check(agree >= ARGMAX_AGREE, f"{name} argmax agreement {agree} < {ARGMAX_AGREE}")
 
 
-def phase_serve(dev, size: int) -> int:
-    print(f"== phase 5: serve 3 requests at {size}^3 through SegmentationEngine.submit (main path)")
+def serve_path(engine, vols, plain, executor, expect_exec, per_request) -> dict:
+    """Serve ``vols`` through ``engine`` under ``executor`` (None: the
+    engine's "auto"): a main path. Every launch count is 0 just before it
+    and read just after. ``per_request(record)`` gives the (K1, K2)
+    launches a request must make."""
+    dev = engine.device
+    synchronize(dev)
+    k1.launches = k2.launches = 0  # main path starts
+    for i, vol in enumerate(vols):
+        before = (k1.launches, k2.launches)
+        t0 = time.perf_counter()
+        res = engine.submit(vol, executor=executor)
+        wall = time.perf_counter() - t0
+        rec, st = res.record, res.record.times
+        launched = (k1.launches - before[0], k2.launches - before[1])
+        print(
+            f"{expect_exec} request {i} raw {tuple(vol.shape)}: status {rec.status} mode {rec.mode} executor {rec.executor} "
+            f"crop {rec.crop_size} launches K1 {launched[0]} K2 {launched[1]}; modeled bytes {rec.hbm_bytes_modeled}; "
+            f"stage s: preprocessing {st.preprocessing:.4f} cropping {st.cropping:.4f} inference {st.inference:.4f} "
+            f"postprocessing {st.postprocessing:.4f} total {st.total():.4f}; submit wall {wall:.4f}"
+        )
+        check(rec.status == "ok", f"request {i} status {rec.status} ({rec.fail_type})")
+        check(rec.executor == expect_exec, f"request {i} executor {rec.executor}")
+        seg = res.segmentation
+        check(tuple(seg.shape) == tuple(plain[i].segmentation.shape) and seg.device.type == dev.type,
+              f"request {i} segmentation {tuple(seg.shape)} on {seg.device}")
+        expected = per_request(rec) if dev.type == "cuda" else (0, 0)
+        check(launched == expected, f"request {i} launched (K1, K2) {launched}, expected {expected}")
+        check(plain[i].record.crop_size == rec.crop_size, "crop size agrees with the plain path")
+        differ = int((plain[i].segmentation != seg).sum())
+        agree = 1.0 - differ / seg.numel()
+        print(f"{expect_exec} request {i} vs executor torch: {differ} voxels differ ({agree:.6%} agree)")
+        check(agree >= ARGMAX_AGREE, f"segmentation agreement {agree} < {ARGMAX_AGREE}")
+        last = res
+    counts = {"K1": k1.launches, "K2": k2.launches}  # main path ends
+    if dev.type == "cuda":
+        profile_request(engine, vols[0], executor, unprofiled_s=last.record.times.total())
+    return counts
+
+
+def phase_serve(dev, size: int) -> dict:
+    print(f"== phase 5: serve 3 requests at {size}^3 through SegmentationEngine.submit, once per kernel path")
     cfg = meshnet.PAPER_MODELS["gwm_light"]
     mcfg = meshnet.PAPER_MODELS["brain_mask_fast"]
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -226,57 +348,36 @@ def phase_serve(dev, size: int) -> int:
         mask_model=(mparams, mcfg),
         device=dev,
     )
-    per_request = 2 * len(cfg.dilations) if dev.type == "cuda" else 0
-    synchronize(dev)
-    k1.launches = 0  # main path starts
-    results = []
-    for i, vol in enumerate(vols):
-        before = k1.launches
-        t0 = time.perf_counter()
-        res = engine.submit(vol)
-        wall = time.perf_counter() - t0
-        rec = res.record
-        launched = k1.launches - before
-        st = rec.times
-        print(
-            f"request {i} raw {tuple(vol.shape)}: status {rec.status} mode {rec.mode} executor {rec.executor} "
-            f"crop {rec.crop_size} K1 launches {launched}; stage s: preprocessing {st.preprocessing:.4f} "
-            f"cropping {st.cropping:.4f} inference {st.inference:.4f} postprocessing {st.postprocessing:.4f} "
-            f"total {st.total():.4f}; submit wall {wall:.4f}"
-        )
-        check(rec.status == "ok", f"request {i} status {rec.status} ({rec.fail_type})")
-        expected_exec = "cuda_fused" if dev.type == "cuda" else "torch"
-        check(rec.executor == expected_exec, f"request {i} executor {rec.executor}")
-        seg = res.segmentation
-        check(tuple(seg.shape) == shape and seg.device.type == dev.type, f"request {i} segmentation {tuple(seg.shape)} on {seg.device}")
-        check(launched == per_request, f"request {i} launched K1 {launched} times, expected {per_request}")
-        results.append(res)
-    main_launches = k1.launches  # main path ends
-    check(dev.type != "cuda" or main_launches > 0, "K1 was not launched on the main path")
+    plain = [engine.submit(v, executor="torch") for v in vols]
+    for i, res in enumerate(plain):
+        check(res.record.status == "ok" and res.record.executor == "torch", f"plain-path request {i}")
+        labels = torch.bincount(res.segmentation.reshape(-1).long(), minlength=cfg.num_classes).tolist()
+        print(f"torch request {i}: crop {res.record.crop_size}; label counts {labels}")
 
-    # Hold the first request against the plain path (executor torch).
-    plain = engine.submit(vols[0], executor="torch")
-    check(plain.record.status == "ok" and plain.record.executor == "torch", "plain-path request")
-    differ = int((plain.segmentation != results[0].segmentation).sum())
-    agree = 1.0 - differ / results[0].segmentation.numel()
-    labels = torch.bincount(results[0].segmentation.reshape(-1).long(), minlength=cfg.num_classes).tolist()
-    print(f"request 0 vs executor torch: crop {plain.record.crop_size} vs {results[0].record.crop_size}; "
-          f"{differ} voxels differ ({agree:.6%} agree); label counts {labels}")
-    check(plain.record.crop_size == results[0].record.crop_size, "crop size agrees with the plain path")
-    check(agree >= ARGMAX_AGREE, f"segmentation agreement {agree} < {ARGMAX_AGREE}")
-    if dev.type == "cuda":
-        profile_request(engine, vols[0], unprofiled_s=results[0].record.times.total())
-    return main_launches
+    print("-- 5a: executor auto (cuda_fused on the card): main path of K1")
+    fused_exec = "cuda_fused" if dev.type == "cuda" else "torch"
+    counts = {"cuda_fused": serve_path(engine, vols, plain, None, fused_exec, lambda rec: (2 * len(cfg.dilations), 0))}
+    check(dev.type != "cuda" or counts["cuda_fused"]["K1"] > 0, "K1 was not launched on its main path")
+
+    print("-- 5b: executor cuda_megakernel: main path of K2")
+    mask_segments = len(k2.plan_for_config(mcfg, shape).segments)
+
+    def k2_per_request(rec):
+        return (0, mask_segments + len(k2.plan_for_config(cfg, rec.crop_size).segments))
+
+    counts["cuda_megakernel"] = serve_path(engine, vols, plain, "cuda_megakernel", "cuda_megakernel", k2_per_request)
+    check(dev.type != "cuda" or counts["cuda_megakernel"]["K2"] > 0, "K2 was not launched on its main path")
+    return counts
 
 
-def profile_request(engine, vol, unprofiled_s: float) -> None:
+def profile_request(engine, vol, executor, unprofiled_s: float) -> None:
     """Device time of one more request by kernel, from a torch.profiler
     trace, and the share of the request the card was busy."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.submit(vol)
+        engine.submit(vol, executor=executor)
         wall = time.perf_counter() - t0
     # device-side rows only (kernels, copies): a CPU op's row repeats the
     # time of the kernels it launched
@@ -286,15 +387,20 @@ def profile_request(engine, vol, unprofiled_s: float) -> None:
         print("profile: the profiler saw no device time; busy share not measured")
         return
     print(
-        f"profile: device busy {busy_s:.4f} s of a profiled request of {wall:.4f} s "
+        f"profile ({executor or 'auto'}): device busy {busy_s:.4f} s of a profiled request of {wall:.4f} s "
         f"({busy_s / wall:.1%}); {busy_s / unprofiled_s:.1%} of the unprofiled request's {unprofiled_s:.4f} s"
     )
     for e in sorted(cuda, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
 
 
-def phase_times(dev, card: str, size: int) -> list[dict]:
-    print(f"== phase 6: times at the main path's layer shapes ({size}^3, card: {card})")
+def bound(ops_: float, bytes_: float, peak_flops: float, peak_bw: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops_ / peak_flops * 1e3, bytes_ / peak_bw * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_times(dev, card: str, size: int) -> tuple[list[dict], list[dict]]:
+    print(f"== phase 6: times at the main path's shapes ({size}^3, card: {card})")
     torch.backends.cudnn.benchmark = False
     _, peak_flops, peak_bw = peaks_for(card)
     cfg = meshnet.PAPER_MODELS["gwm_light"]
@@ -318,29 +424,71 @@ def phase_times(dev, card: str, size: int) -> list[dict]:
         plain_ms = time_ms(lambda: ref.dilated_conv3d(x, w, b, **kw))
         library_ms = time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, b, padding=d, dilation=d))
         ops_, bytes_ = k1_work(shape, cin, cout, d)
-        t_ops, t_bytes = ops_ / peak_flops * 1e3, bytes_ / peak_bw * 1e3
+        bound_ms, bound_by = bound(ops_, bytes_, peak_flops, peak_bw)
         row = dict(
             dilation=d, cin=cin, cout=cout, launches_per_forward=count,
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-            ops=ops_, bytes=bytes_, library_rel_err=lib_rel,
+            bound_ms=bound_ms, bound_by=bound_by, ops=ops_, bytes=bytes_, library_rel_err=lib_rel,
         )
         print("times " + json.dumps(row))
         rows.append(row)
         del x, lib_out
+
+    # K2: every segment of the 256^3 plan on the staging array it reads.
+    params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
+    vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
+    x = conform.conform(vol, (size,) * 3)[None, ..., None]
+    pln = k2.plan_for_config(cfg, (size,) * 3)
+    seg_rows = []
+    for i, act, layers, head in k2_stagings(pln, params, cfg, x):
+        seg = pln.segments[i]
+        kernel_ms = time_ms(lambda: k2.run_segment(act, pln, i, layers, head))
+        plain_ms = time_ms(lambda: ref.megakernel_segment(act, pln, i, layers, head))
+        macs, bytes_ = pln.segment_operations(i), pln.segment_hbm_bytes(i)
+        bound_ms, bound_by = bound(2 * macs, bytes_, peak_flops, peak_bw)
+        row = dict(
+            segment=i, dilations=list(seg.dilations), tile=list(seg.tile), fuse_head=seg.fuse_head,
+            smem_bytes=int(k2._segment_smem_bytes(seg)), blocks=math.prod(p // t for p, t in zip(pln.padded(seg), seg.tile)),
+            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            multiply_adds=macs, modeled_bytes=bytes_,
+        )
+        print("times " + json.dumps(row))
+        seg_rows.append(row)
+
+    # The plan's one-layer segments take tiles of 64^3, so 64 blocks. The
+    # d = 4 layer alone at smaller tiles shows what the block count costs.
+    staging = torch.rand((1,) + (size + 8,) * 3 + (cfg.channels,), generator=gen).to(dev)
+    for t in (16, 32, 64):
+        seg = k2.Segment(2, (4,), cfg.channels, cfg.channels, (t, t, t))
+        one = k2.MegakernelPlan((seg,), (size,) * 3)
+        operands = ops.megakernel_operands(params, cfg, seg)
+        ms = time_ms(lambda: k2.run_segment(staging, one, 0, *operands))
+        print("times tile sweep " + json.dumps(dict(dilation=4, tile=t, blocks=(-(-size // t)) ** 3, kernel_ms=ms)))
+
+    xs = x[..., 0]
+    for name, fn in (("torch", meshnet.apply), ("cuda_fused", ops.meshnet_apply),
+                     ("cuda_megakernel", ops.meshnet_apply_megakernel)):
+        print(f"times forward {name}: {time_ms(lambda: fn(params, xs, cfg)):.4f} ms (one gwm_light forward at {size}^3)")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     print(f"after timing: clocks.sm, power.draw, power.limit, temperature: {smi.stdout.strip()}")
-    return rows
+    return rows, seg_rows
 
 
-def kernels_line(rows, launches: int, max_abs: float, max_rel: float) -> dict:
-    """Per-forward numbers of K1 (one gwm_light forward: 9 launches)."""
-    total = {k: sum(r[k] * r["launches_per_forward"] for r in rows) for k in ("kernel_ms", "plain_ms", "library_ms")}
-    t_ops = sum(r["bound_ms"] * r["launches_per_forward"] for r in rows if r["bound_by"] == "operations")
-    t_bytes = sum(r["bound_ms"] * r["launches_per_forward"] for r in rows if r["bound_by"] == "bytes")
+def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err) -> dict:
+    """Per-forward numbers of each kernel: one gwm_light forward at 256^3,
+    9 launches of K1 or one launch of K2 per segment of the plan."""
+
+    def totals(rs, per=lambda r: 1):
+        t = {k: sum(r[k] * per(r) for r in rs) for k in ("kernel_ms", "plain_ms")}
+        t_ops = sum(r["bound_ms"] * per(r) for r in rs if r["bound_by"] == "operations")
+        t_bytes = sum(r["bound_ms"] * per(r) for r in rs if r["bound_by"] == "bytes")
+        return t, t_ops + t_bytes, "operations" if t_ops >= t_bytes else "bytes"
+
+    t1, b1, by1 = totals(rows, lambda r: r["launches_per_forward"])
+    t2, b2, by2 = totals(seg_rows)
     return {
         "kernels": [
             {
@@ -349,16 +497,32 @@ def kernels_line(rows, launches: int, max_abs: float, max_rel: float) -> dict:
                 "source": "src/repro_torch/kernels/csrc/dilated_conv3d.cu",
                 "replaces": "src/repro/kernels/dilated_conv3d.py:62",
                 "tpu_kernel": "src/repro/kernels/dilated_conv3d.py::_halo_kernel",
-                "launches": launches,
-                "max_abs_err": max_abs,
-                "max_rel_err": max_rel,
-                "ms": total["kernel_ms"],
-                "plain_ms": total["plain_ms"],
-                "bound_ms": t_ops + t_bytes,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "library_ms": total["library_ms"],
+                "launches": launches["cuda_fused"]["K1"],
+                "max_abs_err": k1_err[0],
+                "max_rel_err": k1_err[1],
+                "ms": t1["kernel_ms"],
+                "plain_ms": t1["plain_ms"],
+                "bound_ms": b1,
+                "bound_by": by1,
+                "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in rows),
                 "per": "one gwm_light forward at 256^3 (9 launches); sums of per-layer medians",
-            }
+            },
+            {
+                "name": "megakernel_segment",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/megakernel.cu",
+                "replaces": "src/repro/kernels/megakernel.py:482",
+                "tpu_kernel": "src/repro/kernels/megakernel.py::_segment_kernel",
+                "launches": launches["cuda_megakernel"]["K2"],
+                "max_abs_err": k2_err[0],
+                "max_rel_err": k2_err[1],
+                "ms": t2["kernel_ms"],
+                "plain_ms": t2["plain_ms"],
+                "bound_ms": b2,
+                "bound_by": by2,
+                "library_ms": None,
+                "per": f"one gwm_light forward at 256^3 ({len(seg_rows)} launches, one a segment); sums of per-segment medians",
+            },
         ]
     }
 
@@ -380,14 +544,15 @@ def main(argv=None) -> int:
     card = phase_device(rehearsal)
     if not rehearsal:
         phase_build()
-        max_abs, max_rel = phase_parity(dev)
+        k1_err = phase_parity(dev)
+        k2_err = phase_parity_k2(dev)
     phase_forward(dev, size)
     launches = phase_serve(dev, size)
     if rehearsal:
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
-    rows = phase_times(dev, card, size)
-    print(json.dumps(kernels_line(rows, launches, max_abs, max_rel)))
+    rows, seg_rows = phase_times(dev, card, size)
+    print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

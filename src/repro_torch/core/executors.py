@@ -6,17 +6,31 @@ equal to ``meshnet.apply`` in eval mode, the leading ``B`` a true batch
 axis. Built-in executors, with the reference backend each is held to
 (``REFERENCE_NAMES``):
 
-  ``torch``      — the plain forward, ``meshnet.apply`` (reference ``xla``):
-                   the parity oracle, on any device.
-  ``cuda_fused`` — ``ops.meshnet_apply``, one fused conv+BN+ReLU kernel
-                   launch per hidden layer (reference ``pallas_fused``).
-                   On CPU tensors the kernel's plain version runs.
+  ``torch``           — the plain forward, ``meshnet.apply`` (reference
+                        ``xla``): the parity oracle, on any device.
+  ``cuda_fused``      — ``ops.meshnet_apply``, one fused conv+BN+ReLU
+                        kernel launch (K1) per hidden layer (reference
+                        ``pallas_fused``).
+  ``cuda_megakernel`` — ``ops.meshnet_apply_megakernel``, one depth-first
+                        kernel launch (K2) per segment of a plan that fits
+                        one block's shared memory (reference
+                        ``pallas_megakernel``).
+
+On CPU tensors the kernels' plain versions run. ``hbm_bytes`` prices each
+kernel-backed schedule's device-memory traffic (telemetry/traffic.py).
 
 ``"auto"`` resolves per device: ``cuda_fused`` on CUDA, ``torch`` on the
-CPU. ``streaming_apply`` is what mode ``"streaming"`` runs; for both
-backends it is the same forward, since eager PyTorch frees each layer's
-activation when the next one replaces it, so memory does not grow with
-depth (``core/streaming.py`` comes with a later slice).
+CPU. The reference prefers its megakernel whenever the plan fits; the
+port does not yet. K1's and K2's layers are bound by the fp32 FMA rate of
+the CUDA cores, and the depth-first schedule saves bytes but adds the
+halo's recompute, so on fp32 CUDA cores it cannot beat the per-layer
+forward by its schedule. ``auto`` switches to ``cuda_megakernel`` once a
+K2 beats the per-layer forward on the card (PERF.md holds both times).
+
+``streaming_apply`` is what mode ``"streaming"`` runs; for every backend it
+is the same forward, since eager PyTorch frees each layer's activation when
+the next one replaces it, so memory does not grow with depth
+(``core/streaming.py`` comes with a later slice).
 """
 
 from __future__ import annotations
@@ -29,19 +43,20 @@ import torch
 from repro_torch.core import meshnet
 from repro_torch.core.meshnet import MeshNetConfig
 from repro_torch.kernels import ops, quantize
+from repro_torch.telemetry import traffic
 
 ApplyFn = Callable[..., torch.Tensor]
 BytesFn = Callable[..., Optional[int]]
 
 #: the port's backend names -> the reference backends they are held to.
-REFERENCE_NAMES = {"torch": "xla", "cuda_fused": "pallas_fused"}
+REFERENCE_NAMES = {"torch": "xla", "cuda_fused": "pallas_fused", "cuda_megakernel": "pallas_megakernel"}
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutorSpec:
     """One inference backend. ``hbm_bytes(cfg, vol, batch=1,
-    precision="fp32")`` will price the schedule's device-memory traffic;
-    None for both backends until the port has byte models of its own."""
+    precision="fp32")`` prices the schedule's device-memory traffic; None
+    where the schedule has no model (the plain forward)."""
 
     name: str
     apply: ApplyFn
@@ -71,7 +86,10 @@ def names() -> list[str]:
 
 def default_executor(device=None) -> str:
     """``cuda_fused`` on a CUDA device, ``torch`` on the CPU. ``device=None``
-    asks whether this host has a card."""
+    asks whether this host has a card. Not ``cuda_megakernel``, though the
+    reference prefers its megakernel: at fp32 on the CUDA cores K2 does the
+    per-layer work plus the halo's recompute, so it waits until it beats
+    the per-layer forward on the card (see the module docstring)."""
     if device is None:
         cuda = torch.cuda.is_available()
     else:
@@ -119,6 +137,24 @@ def bound_apply(
     return _BOUND[key]
 
 
+def modeled_hbm_bytes(
+    name: Optional[str],
+    cfg: MeshNetConfig,
+    volume_shape: tuple[int, int, int],
+    batch: int = 1,
+    precision: str = "fp32",
+    *,
+    device=None,
+) -> Optional[int]:
+    """Modeled device-memory bytes of one forward under the named
+    executor's schedule, or None if the backend has no model. Plans the
+    megakernel, so an unplannable one raises ValueError here."""
+    spec = get(name, device=device)
+    if spec.hbm_bytes is None:
+        return None
+    return spec.hbm_bytes(cfg, volume_shape, batch=batch, precision=precision)
+
+
 def _torch_apply(params, x, cfg, precision: str = "fp32"):
     quantize.validate(precision)
     return meshnet.apply(params, x, cfg)
@@ -139,5 +175,16 @@ register(
         apply=ops.meshnet_apply,
         streaming_apply=ops.meshnet_apply,
         description="fused CUDA conv+BN+ReLU kernel per layer",
+        hbm_bytes=traffic.meshnet_fused_bytes,
+    )
+)
+
+register(
+    ExecutorSpec(
+        name="cuda_megakernel",
+        apply=ops.meshnet_apply_megakernel,
+        streaming_apply=ops.meshnet_apply_megakernel,
+        description="depth-first CUDA kernel per segment of a shared-memory plan",
+        hbm_bytes=traffic.meshnet_megakernel_bytes,
     )
 )

@@ -5,15 +5,16 @@ conform -> [brain-mask -> crop] -> inference (full | streaming) -> argmax
 
 Inference dispatches through the executor registry (core/executors.py):
 ``"auto"`` is ``cuda_fused`` (one fused kernel launch per layer) on the
-card and ``torch`` (the plain forward) on the CPU. The executor and
-precision that ran are stamped on the telemetry record, and each stage is
-timed into it; on the card every stage ends in a synchronisation so the
-times cover the work, not its launch.
+card and ``torch`` (the plain forward) on the CPU; ``cuda_megakernel``
+runs the depth-first forward. The executor and precision that ran, and
+the schedule's modeled device-memory bytes, are stamped on the telemetry
+record, and each stage is timed into it; on the card every stage ends in
+a synchronisation so the times cover the work, not its launch.
 
 Not ported yet: ``mode="subvolume"`` (the patching slice) and
 ``shard_devices > 1`` (the multi-GPU slice) raise ``ValueError``.
-Otherwise ``run`` never raises on a budget or degenerate-volume failure:
-it returns a failed record.
+Otherwise ``run`` never raises on a budget, plan or degenerate-volume
+failure: it returns a failed record.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ class PipelineConfig:
     volume_shape: tuple[int, int, int] = (256, 256, 256)
     # inference mode: "full" | "streaming" ("subvolume" is not ported yet)
     mode: str = "full"
-    # forward implementation: "auto" | "torch" | "cuda_fused"
+    # forward implementation: "auto" | "torch" | "cuda_fused" | "cuda_megakernel"
     executor: str = executors.AUTO
     # slab count for multi-GPU sharding; only None or 1 in this slice
     shard_devices: Optional[int] = None
@@ -101,6 +102,22 @@ def run(
         memory_budget_bytes=None if cfg.budget is None else cfg.budget.bytes_limit,
         collective_bytes_modeled=0,
     )
+    try:
+        # Price the forward's device-memory traffic before any compute. For
+        # the megakernel this plans the schedule, so a plan that fits no
+        # block's shared memory fails the run here; the mask forward runs
+        # under the same executor, so its model is planned too.
+        rec.hbm_bytes_modeled = executors.modeled_hbm_bytes(
+            exec_name, cfg.model, cfg.volume_shape, precision=precision, device=dev
+        )
+        if cfg.use_cropping and mask_model is not None:
+            executors.modeled_hbm_bytes(
+                exec_name, mask_model[1], cfg.volume_shape, precision=precision, device=dev
+            )
+    except ValueError:
+        rec.status = "fail"
+        rec.fail_type = "vmem_oom"  # the reference's name for an unplannable schedule
+        return PipelineResult(segmentation=None, record=rec)
     budget = cfg.budget or MemoryBudget.unlimited()
     act_bytes = quantize.act_bytes(precision)
     try:

@@ -5,13 +5,21 @@
 inference BatchNorm and the ReLU in its epilogue, so an activation crosses
 device memory once per layer. The kernel masks the volume's edges itself,
 so no padding to a block multiple is needed.
+
+``meshnet_apply_megakernel`` is the ``cuda_megakernel`` backend: one call
+of K2 per segment of a depth-first plan (kernels/megakernel.py), so the
+hidden activations inside a segment never reach device memory.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import dilated_conv3d as conv_kernel
+from repro_torch.kernels import megakernel as mega_kernel
 from repro_torch.kernels import quantize
 
 
@@ -63,3 +71,50 @@ def meshnet_apply(params, x: torch.Tensor, cfg, *, precision: str = "fp32") -> t
         )
     head = params["head"]
     return torch.einsum("bdhwi,io->bdhwo", x, head["w"][0, 0, 0]) + head["b"]
+
+
+def meshnet_apply_megakernel(
+    params,
+    x: torch.Tensor,
+    cfg,
+    *,
+    pln: Optional[mega_kernel.MegakernelPlan] = None,
+    precision: str = "fp32",
+) -> torch.Tensor:
+    """Depth-first MeshNet forward (== meshnet.apply, eval mode): one K2
+    launch per segment of ``pln`` (planned here when not given), the head
+    fused into the last. The input is copied into the first staging array
+    at the first segment's halo offset; every later staging array is a
+    segment's output."""
+    quantize.validate(precision)
+    if x.ndim == 4:
+        x = x[..., None]
+    B, D, H, W, _ = x.shape
+    vol = (D, H, W)
+    if pln is None:
+        pln = mega_kernel.plan_for_config(cfg, vol, batch=B)
+    elif pln.vol != vol:
+        raise ValueError(f"plan is for volume {pln.vol}, input is {vol}")
+    first = pln.segments[0]
+    h = first.halo
+    pad = sum(((h, h + p - v) for p, v in zip(pln.padded(first)[::-1], vol[::-1])), ())
+    act = F.pad(x.float(), (0, 0) + pad)
+    for i, seg in enumerate(pln.segments):
+        act = mega_kernel.run_segment(act, pln, i, *megakernel_operands(params, cfg, seg))
+    return act[:, :D, :H, :W, :]
+
+
+def megakernel_operands(params, cfg, seg: mega_kernel.Segment) -> tuple[list, Optional[tuple]]:
+    """(layers, head) of one segment as ``megakernel.run_segment`` takes
+    them: each layer's (w, b, scale, offset) with the BatchNorm folded
+    (scale 1 and offset 0 without it), and the head's (w (C, classes), b)
+    when the segment fuses it."""
+    layers = []
+    for layer in params["layers"][seg.start : seg.start + len(seg.dilations)]:
+        if cfg.use_batchnorm:
+            scale, offset = fold_batchnorm(layer)
+        else:
+            scale, offset = torch.ones_like(layer["b"]), torch.zeros_like(layer["b"])
+        layers.append((layer["w"], layer["b"], scale, offset))
+    head = (params["head"]["w"][0, 0, 0], params["head"]["b"]) if seg.fuse_head else None
+    return layers, head

@@ -2,7 +2,8 @@
 
 Each is the CPU path of its kernel's wrapper and, on the card, the version
 ``chip_smoke.py`` holds the kernel against. They repeat the kernel's
-arithmetic in plain tensor code and are no yardstick of speed.
+arithmetic in plain tensor code and are no yardstick of speed:
+``dilated_conv3d`` for K1, ``megakernel_segment`` for K2.
 """
 
 from __future__ import annotations
@@ -58,3 +59,30 @@ def dilated_conv3d(
             out = out + offset.float()
         out = torch.relu(out)
     return out.to(x.dtype)
+
+
+def megakernel_segment(x: torch.Tensor, pln, i: int, layers, head=None) -> torch.Tensor:
+    """Segment ``i`` of a megakernel plan, the same staging arrays in and
+    out as K2 (``kernels/megakernel.py::run_segment``), computed layer by
+    layer over the whole volume instead of tile by tile.
+
+    K2 masks every position outside the true volume to zero after each
+    layer but the last, so per voxel its result is that of 'same'-padded
+    layers over the volume; the last layer also covers the tile-padded
+    region beyond it, reading zeros there. The output array's border is
+    left unwritten, as K2 leaves it."""
+    seg = pln.segments[i]
+    h = seg.halo
+    vol = pln.vol
+    padded = pln.padded(seg)
+    act = x[:, h : h + vol[0], h : h + vol[1], h : h + vol[2], :]
+    for li, ((w, b, scale, offset), d) in enumerate(zip(layers, seg.dilations)):
+        if li == len(layers) - 1:
+            act = F.pad(act, (0, 0) + sum(((0, p - v) for p, v in zip(padded[::-1], vol[::-1])), ()))
+        act = dilated_conv3d(act, w, b, dilation=d, scale=scale, offset=offset, fuse_affine=True)
+    if head is not None:
+        act = torch.matmul(act, head[0]) + head[1]
+    o = pln.out_halo(i)
+    out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=x.dtype, device=x.device)
+    out[:, o : o + padded[0], o : o + padded[1], o : o + padded[2], :] = act
+    return out

@@ -39,12 +39,13 @@ class TelemetryRecord:
     mode: str  # full | subvolume | streaming
     status: str  # ok | fail
     times: StageTimes
-    # which forward backend ran (core/executors.py): torch | cuda_fused —
+    # which forward backend ran (core/executors.py): torch | cuda_fused |
+    # cuda_megakernel —
     # the server-side analogue of the paper logging the WebGL vs WASM
     # backend per run.
     executor: Optional[str] = None
     # modeled device-memory bytes the executor's schedule moves for this
-    # run's inference; None until the port has byte models of its own.
+    # run's inference (telemetry/traffic.py); None for the plain forward.
     hbm_bytes_modeled: Optional[int] = None
     # modeled inter-device bytes of the run's halo exchanges — 0 for the
     # single-device executors the port has so far.

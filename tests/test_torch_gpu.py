@@ -1,4 +1,4 @@
-"""K1 and the fused forward on the CUDA card, against their plain versions
+"""K1, K2 and their forwards on the CUDA card, against their plain versions
 on the same card. Marked ``gpu``: without a card every test skips (the
 fixture decides, at run time). Run on a machine with an H100:
 
@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.core import executors, meshnet, pipeline
 from repro_torch.kernels import dilated_conv3d as conv_kernel
-from repro_torch.kernels import ref
+from repro_torch.kernels import megakernel as mk
+from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.gpu
 
@@ -85,4 +86,105 @@ def test_pipeline_on_the_card_uses_the_kernel(cuda):
     res = pipeline.run(pc, params, vol)
     assert res.record.status == "ok" and res.record.executor == "cuda_fused"
     assert conv_kernel.launches == before + 3
+    assert res.segmentation.device.type == "cuda" and res.segmentation.shape == (32, 32, 32)
+
+
+def _params_with_bn(cfg, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    params = meshnet.init(cfg, generator=g, device="cpu")
+    for layer in params["layers"]:
+        c = layer["b"].shape[0]
+        layer["b"] = 0.1 * torch.randn(c, generator=g)
+        layer["bn_scale"] = 1.0 + 0.2 * torch.randn(c, generator=g)
+        layer["bn_bias"] = 0.1 * torch.randn(c, generator=g)
+        layer["bn_mean"] = 0.3 * torch.randn(c, generator=g)
+        layer["bn_var"] = 0.5 + torch.rand(c, generator=g)
+    return {
+        "layers": [{k: t.to(device) for k, t in layer.items()} for layer in params["layers"]],
+        "head": {k: t.to(device) for k, t in params["head"].items()},
+    }
+
+
+def _written(pln, i):
+    o = pln.out_halo(i)
+    return (slice(None),) + tuple(slice(o, o + p) for p in pln.padded(pln.segments[i])) + (slice(None),)
+
+
+@pytest.mark.parametrize(
+    "channels,classes,dilations,shape,budget",
+    [
+        (5, 3, (1, 2, 4, 8, 16, 8, 4, 2, 1), (1, 40, 36, 44), mk.SMEM_BUDGET),
+        (5, 2, (1, 1, 2, 1), (2, 30, 26, 29), mk.SMEM_BUDGET),
+        (10, 2, (1, 2, 4, 8), (1, 33, 20, 27), 60_000),
+        (10, 50, (2, 1, 1), (2, 19, 24, 21), mk.SMEM_BUDGET),
+        (18, 104, (1, 2, 1), (1, 20, 20, 20), 100_000),
+        (21, 3, (1, 2, 4, 2, 1), (2, 19, 24, 21), 120_000),
+    ],
+)
+def test_megakernel_segments_match_plain_version(cuda, channels, classes, dilations, shape, budget):
+    # every segment on the same staging array, its border filled with NaN
+    cfg = meshnet.MeshNetConfig(channels=channels, num_classes=classes, dilations=dilations)
+    params = _params_with_bn(cfg, channels + classes, cuda)
+    pln = mk.plan_for_config(cfg, shape[1:], smem_budget=budget, batch=shape[0])
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    h = pln.segments[0].halo
+    act = torch.full((shape[0],) + tuple(p + 2 * h for p in pln.padded(pln.segments[0])) + (1,), float("nan"), device=cuda)
+    act[:, h : h + shape[1], h : h + shape[2], h : h + shape[3], 0] = x
+    for i, seg in enumerate(pln.segments):
+        operands = ops.megakernel_operands(params, cfg, seg)
+        before = mk.launches
+        out = mk.run_segment(act, pln, i, *operands)
+        torch.cuda.synchronize()
+        assert mk.launches == before + 1
+        w = _written(pln, i)
+        got, expect = out[w], ref.megakernel_segment(act, pln, i, *operands)[w]
+        assert torch.isfinite(got).all()
+        err = float((got - expect).abs().max()) / float(expect.abs().max())
+        assert err <= REL_TOL, (i, seg, err)
+        act = torch.full_like(out, float("nan"))
+        act[w] = out[w]
+
+
+def test_megakernel_forward_launches_once_a_segment(cuda):
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = _params_with_bn(cfg, 5, cuda)
+    x = torch.rand((1, 40, 48, 36), generator=torch.Generator().manual_seed(2)).to(cuda)
+    pln = mk.plan_for_config(cfg, (40, 48, 36))
+    before = (mk.launches, conv_kernel.launches)
+    got = executors.apply("cuda_megakernel", params, x, cfg)
+    assert (mk.launches - before[0], conv_kernel.launches - before[1]) == (len(pln.segments), 0)
+    expect = executors.apply("torch", params, x, cfg)
+    err = float((got - expect).abs().max()) / float(expect.abs().max())
+    assert err <= 1e-4, err
+
+
+def test_megakernel_rejects_what_it_does_not_take(cuda):
+    def setup(channels):
+        cfg = meshnet.MeshNetConfig(channels=channels, dilations=(1, 2))
+        params = _params_with_bn(cfg, 0, cuda)
+        pln = mk.plan_for_config(cfg, (8, 8, 8))
+        h = pln.segments[0].halo
+        x = torch.zeros((1,) + tuple(p + 2 * h for p in pln.padded(pln.segments[0])) + (1,), device=cuda)
+        return x, pln, ops.megakernel_operands(params, cfg, pln.segments[0])
+
+    x, pln, (layers, head) = setup(5)
+    with pytest.raises(TypeError):
+        mk.run_segment(x.double(), pln, 0, layers, head)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.run_segment(x.transpose(1, 2), pln, 0, layers, head)
+    x3, pln3, (layers3, head3) = setup(3)
+    with pytest.raises(ValueError, match="Cout=3"):
+        mk.run_segment(x3, pln3, 0, layers3, head3)
+
+
+def test_pipeline_on_the_card_uses_the_megakernel(cuda):
+    cfg = meshnet.MeshNetConfig(dilations=(1, 2, 4))
+    params = meshnet.init(cfg, generator=torch.Generator().manual_seed(3), device=cuda)
+    vol = np.random.default_rng(4).random((30, 32, 28)).astype(np.float32)
+    pc = pipeline.PipelineConfig(model=cfg, volume_shape=(32, 32, 32), min_component_size=4, executor="cuda_megakernel")
+    before = (mk.launches, conv_kernel.launches)
+    res = pipeline.run(pc, params, vol)
+    assert res.record.status == "ok" and res.record.executor == "cuda_megakernel"
+    segments = len(mk.plan_for_config(cfg, (32, 32, 32)).segments)
+    assert (mk.launches - before[0], conv_kernel.launches - before[1]) == (segments, 0)
     assert res.segmentation.device.type == "cuda" and res.segmentation.shape == (32, 32, 32)

@@ -18,9 +18,10 @@ each printed on lines of its own:
             borders filled with NaN), <= 5e-5, over widths 5/10/18/21,
             heads of 2/3/50/104 classes, batch 2 at odd shapes, and plans
             forced to several segments by small shared-memory budgets
-4. forward  gwm_light at 256^3 against the plain forward: the K1 forward
-            within 2e-4 and the K2 forward within 1e-4 relative, argmax
-            agreeing on >= 99.99 % of voxels
+4. forward  gwm_light and the crop model brain_mask_fast at 256^3, each
+            against its plain forward: the K1 forward within 2e-4 and the
+            K2 forward (each model on its own 256^3 plan) within 1e-4
+            relative, argmax agreeing on >= 99.99 % of voxels
 5. serve    SegmentationEngine.submit on 3 synthetic volumes (one raw
             shape non-cubic), brain_mask_fast as the crop model:
             5a  executor cuda_fused, K1 launched exactly 18 times a request
@@ -36,7 +37,11 @@ each printed on lines of its own:
 6. times    CUDA-event medians of 20 runs: K1 at the main path's layer
             shapes (kernel, plain, F.conv3d with TF32 off, bound); K2 per
             segment of the 256^3 plan (kernel, plain, bound), and the d = 4
-            one-layer segment at tiles 16^3, 32^3, 64^3; the whole forwards
+            one-layer segment at tiles 16^3, 32^3, 64^3; the whole forwards.
+            Each bound counts the function's own work, as K1's does: the
+            in-volume taps, each input read once and each output written
+            once. K2's plan_bound_ms prices its schedule instead: the halo
+            recompute and the haloed window reads of the byte model
 6b. kernels one JSON line describing every ported kernel
 7. ok       the last line, {"ok": true, "device": {...}}
 
@@ -154,6 +159,25 @@ def k1_work(shape, cin, cout, dilation) -> tuple[int, int]:
     return ops_, bytes_
 
 
+def k2_work(pln, i: int) -> tuple[int, int]:
+    """(operations, bytes) segment i of ``pln`` must do and move, counted
+    as K1's are: each layer's in-volume taps and epilogue over the true
+    volume, the fused head's products and bias; the segment's input read
+    once, its parameters once, its output written once. The plan's halo
+    recompute and haloed window reads are not part of the function: they
+    price the schedule (``plan_bound_ms``)."""
+    seg = pln.segments[i]
+    shape, voxels = (1,) + tuple(pln.vol), math.prod(pln.vol)
+    ops_, cin = 0, seg.cin
+    for d in seg.dilations:
+        ops_ += k1_work(shape, cin, seg.channels, d)[0]
+        cin = seg.channels
+    if seg.fuse_head:
+        ops_ += 2 * voxels * seg.channels * seg.num_classes + voxels * seg.num_classes
+    n_params = k2._smem_layout(seg)[0]  # weights, bias, scale, offset; the head's
+    return ops_, 4 * (voxels * seg.cin + n_params + voxels * seg.cout)
+
+
 def phase_device(rehearsal: bool) -> str:
     print("== phase 1: device")
     if rehearsal:
@@ -269,27 +293,32 @@ def phase_parity_k2(dev) -> tuple[float, float]:
 
 
 def phase_forward(dev, size: int) -> None:
-    print(f"== phase 4: gwm_light forward at {size}^3, kernel paths vs plain path")
-    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    print(f"== phase 4: the served models' forwards at {size}^3, kernel paths vs plain path")
     gen = torch.Generator().manual_seed(SEED + 4)
-    params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
+    cfg, mcfg = meshnet.PAPER_MODELS["gwm_light"], meshnet.PAPER_MODELS["brain_mask_fast"]
+    models = [("gwm_light", cfg, with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen))]
     vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
     x = conform.conform(vol, (size,) * 3)[None]
-    expect = meshnet.apply(params, x, cfg)
-    pln = k2.plan_for_config(cfg, (size,) * 3)
-    print(f"megakernel plan: {[(s.dilations, s.tile) for s in pln.segments]}; "
-          f"modeled bytes {pln.hbm_bytes()}; multiply-adds {pln.operations()}")
-    for name, fn, tol in (("cuda_fused", ops.meshnet_apply, FORWARD_REL_TOL),
-                          ("cuda_megakernel", ops.meshnet_apply_megakernel, MEGA_FORWARD_REL_TOL)):
-        got = fn(params, x, cfg)
-        check(bool(torch.isfinite(got).all()), f"{name} forward logits are finite")
-        check(tuple(got.shape) == (1, size, size, size, cfg.num_classes), f"{name} logits shape {tuple(got.shape)}")
-        abs_err, rel = rel_err(got, expect)
-        disagree = int((got.argmax(-1) != expect.argmax(-1)).sum())
-        agree = 1.0 - disagree / got[..., 0].numel()
-        print(f"{name}: logits max_abs_err {abs_err:.3e} rel {rel:.3e}; argmax disagrees on {disagree} voxels ({agree:.6%} agree)")
-        check(rel <= tol, f"{name} forward rel err {rel} > {tol}")
-        check(agree >= ARGMAX_AGREE, f"{name} argmax agreement {agree} < {ARGMAX_AGREE}")
+    # the crop stage's mask forward, at the size and plan it is served with
+    models.append(("brain_mask_fast", mcfg, with_bn_stats(meshnet.init(mcfg, generator=gen, device=dev), gen)))
+    for model, cfg, params in models:
+        expect = meshnet.apply(params, x, cfg)
+        pln = k2.plan_for_config(cfg, (size,) * 3)
+        print(f"{model} megakernel plan: {[(s.dilations, s.tile) for s in pln.segments]}; "
+              f"modeled bytes {pln.hbm_bytes()}; multiply-adds {pln.operations()}")
+        for name, fn, tol in (("cuda_fused", ops.meshnet_apply, FORWARD_REL_TOL),
+                              ("cuda_megakernel", ops.meshnet_apply_megakernel, MEGA_FORWARD_REL_TOL)):
+            got = fn(params, x, cfg)
+            what = f"{model} {name}"
+            check(bool(torch.isfinite(got).all()), f"{what} forward logits are finite")
+            check(tuple(got.shape) == (1, size, size, size, cfg.num_classes), f"{what} logits shape {tuple(got.shape)}")
+            abs_err, rel = rel_err(got, expect)
+            disagree = int((got.argmax(-1) != expect.argmax(-1)).sum())
+            agree = 1.0 - disagree / got[..., 0].numel()
+            print(f"{what}: logits max_abs_err {abs_err:.3e} rel {rel:.3e}; argmax disagrees on {disagree} voxels ({agree:.6%} agree)")
+            check(rel <= tol, f"{what} forward rel err {rel} > {tol}")
+            check(agree >= ARGMAX_AGREE, f"{what} argmax agreement {agree} < {ARGMAX_AGREE}")
+        del expect, got
 
 
 def serve_path(engine, vols, plain, executor, expect_exec, per_request) -> dict:
@@ -444,13 +473,15 @@ def phase_times(dev, card: str, size: int) -> tuple[list[dict], list[dict]]:
         seg = pln.segments[i]
         kernel_ms = time_ms(lambda: k2.run_segment(act, pln, i, layers, head))
         plain_ms = time_ms(lambda: ref.megakernel_segment(act, pln, i, layers, head))
-        macs, bytes_ = pln.segment_operations(i), pln.segment_hbm_bytes(i)
-        bound_ms, bound_by = bound(2 * macs, bytes_, peak_flops, peak_bw)
+        ops_, bytes_ = k2_work(pln, i)
+        bound_ms, bound_by = bound(ops_, bytes_, peak_flops, peak_bw)
+        macs, modeled = pln.segment_operations(i), pln.segment_hbm_bytes(i)
+        plan_bound_ms, plan_bound_by = bound(2 * macs, modeled, peak_flops, peak_bw)
         row = dict(
             segment=i, dilations=list(seg.dilations), tile=list(seg.tile), fuse_head=seg.fuse_head,
             smem_bytes=int(k2._segment_smem_bytes(seg)), blocks=math.prod(p // t for p, t in zip(pln.padded(seg), seg.tile)),
-            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            multiply_adds=macs, modeled_bytes=bytes_,
+            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, ops=ops_, bytes=bytes_,
+            plan_bound_ms=plan_bound_ms, plan_bound_by=plan_bound_by, multiply_adds=macs, modeled_bytes=modeled,
         )
         print("times " + json.dumps(row))
         seg_rows.append(row)
@@ -521,6 +552,7 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err) -> dict:
                 "bound_ms": b2,
                 "bound_by": by2,
                 "library_ms": None,
+                "plan_bound_ms": sum(r["plan_bound_ms"] for r in seg_rows),
                 "per": f"one gwm_light forward at 256^3 ({len(seg_rows)} launches, one a segment); sums of per-segment medians",
             },
         ]

@@ -24,8 +24,10 @@ CPU. The reference prefers its megakernel whenever the plan fits; the
 port does not yet. K1's and K2's layers are bound by the fp32 FMA rate of
 the CUDA cores, and the depth-first schedule saves bytes but adds the
 halo's recompute, so on fp32 CUDA cores it cannot beat the per-layer
-forward by its schedule. ``auto`` switches to ``cuda_megakernel`` once a
-K2 beats the per-layer forward on the card (PERF.md holds both times).
+forward by its schedule. ``auto`` switches to ``cuda_megakernel`` when
+its whole forward at the served shape takes less time on the card than
+``cuda_fused``'s in the same run (``chip_smoke.py`` phase 6 times both);
+until then the megakernel is chosen only by name.
 
 ``streaming_apply`` is what mode ``"streaming"`` runs; for every backend it
 is the same forward, since eager PyTorch frees each layer's activation when

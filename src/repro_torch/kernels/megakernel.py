@@ -172,7 +172,6 @@ class MegakernelPlan:
 
     segments: tuple[Segment, ...]
     vol: tuple[int, int, int]  # true volume dims (pre-padding)
-    smem_budget: int = SMEM_BUDGET
 
     def padded(self, seg: Segment) -> tuple[int, int, int]:
         """Tile-multiple dims of the region this segment computes."""
@@ -337,7 +336,7 @@ def _plan_cached(dils, in_channels, channels, num_classes, vol, smem_budget, bat
             f"of shared memory, over the {smem_budget}-byte budget; reduce the channel "
             f"width or raise smem_budget"
         )
-    return MegakernelPlan(segments=segments, vol=vol, smem_budget=smem_budget)
+    return MegakernelPlan(segments=segments, vol=vol)
 
 
 # ------------------------------------------------------------------ K2 ---

@@ -61,10 +61,11 @@ def _port_cfg(ref_cfg):
     return meshnet.MeshNetConfig(**fields)
 
 
-def _reference_plan(pln):
-    """The port's plan as the reference's Segment and MegakernelPlan."""
+def _reference_plan(pln, budget):
+    """The port's plan, made under ``budget``, as the reference's Segment
+    and MegakernelPlan."""
     segments = tuple(ref_mk.Segment(**dataclasses.asdict(s)) for s in pln.segments)
-    return ref_mk.MegakernelPlan(segments=segments, vol=pln.vol, vmem_budget=pln.smem_budget)
+    return ref_mk.MegakernelPlan(segments=segments, vol=pln.vol, vmem_budget=budget)
 
 
 def _written(pln, i):
@@ -112,7 +113,7 @@ class TestPlanner:
     @pytest.mark.parametrize("name", ["gwm_light", "brain_mask_fast"])
     def test_paper_volume_plans_fit_one_block(self, name):
         pln = mk.plan_for_config(meshnet.PAPER_MODELS[name], PAPER_VOL)
-        assert pln.smem_budget == mk.SMEM_BUDGET == 232_448
+        assert mk.SMEM_BUDGET == 232_448
         assert max(mk._segment_smem_bytes(s) for s in pln.segments) <= mk.SMEM_BUDGET
         # the per-layer path's multiply-adds, all 27 taps, and the head
         cfg = meshnet.PAPER_MODELS[name]
@@ -130,7 +131,7 @@ class TestPlanner:
         assert segments == pln.segments
         assert pln.hbm_bytes(batch) == cost == traffic.meshnet_megakernel_bytes(cfg, vol, batch=batch)
         # the reference's formula on the same segments (megakernel.py:176-269)
-        assert pln.hbm_bytes(batch) == _reference_plan(pln).hbm_bytes(batch=batch)
+        assert pln.hbm_bytes(batch) == _reference_plan(pln, mk.SMEM_BUDGET).hbm_bytes(batch=batch)
         assert pln.hbm_bytes(batch) == mk._input_pad_bytes(pln.segments[0], vol, batch) + sum(
             pln.segment_hbm_bytes(i, batch) for i in range(len(pln.segments))
         )
@@ -232,7 +233,7 @@ class TestParity:
         pln = mk.plan_for_config(cfg, BATCHED_ODD[1:], smem_budget=40_000, batch=2)
         assert len(pln.segments) == 3
         assert any(t < 8 or t % 8 for s in pln.segments for t in s.tile)
-        rpln = _reference_plan(pln)
+        rpln = _reference_plan(pln, 40_000)
         ref_params = jax.tree.map(jnp.asarray, tree)
         params = bridge.params_from_numpy(tree, "cpu")
         h = pln.segments[0].halo

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's segmentation main paths on one CUDA card.
+"""Drive the PyTorch port's segmentation and training main paths on one
+CUDA card.
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # tiny shapes, plain paths, CPU
 
 The port has two kernel-backed forwards: ``cuda_fused`` (K1, the fused
 dilated conv, one launch per layer) and ``cuda_megakernel`` (K2, the
-depth-first segment kernel, one launch per segment of a plan). Phases,
-each printed on lines of its own:
+depth-first segment kernel, one launch per segment of a plan); and a
+training path whose hard Dice metric and held-out scores go through K3
+(the per-class Dice count kernel, one launch per score). Phases, each
+printed on lines of its own:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds every kernel source of the port, all at once,
@@ -42,21 +45,47 @@ each printed on lines of its own:
             in-volume taps, each input read once and each output written
             once. K2's plan_bound_ms prices its schedule instead: the halo
             recompute and the haloed window reads of the byte model
-6b. kernels one JSON line describing every ported kernel
-7. ok       the last line, {"ok": true, "device": {...}}
+7. train    the training path, gwm_light at full width:
+            7a  K3 against its plain version on the card, counts equal,
+                over 2/3/50/104 classes, 256^3, (31, 33, 17) and a batch of
+                2 at that shape, int32/int64 label pairs, labels -1, C and
+                2^30 among them and one class absent; ops.dice bit-equal to
+                dice_from_counts of the plain counts;
+            7b  one train step at 64^3, batch 2, dropout 0, on the card and
+                on the CPU from the same params and batch: loss, ce,
+                soft_dice_loss and grad_norm within 1e-4 relative, the hard
+                Dice equal (where both argmaxes agree), every gradient leaf
+                but the pre-BN conv biases within 1e-4 of the global norm;
+            7c  the main path: trainer.train at 256^3, batch 1, dropout 0.1,
+                8 steps, a checkpoint, evaluate on 2 held-out subjects;
+                every launch count set to 0 just before and read just
+                after: K3 exactly 8 + 2 times, K1 exactly 9 x 2, K2 never;
+                metrics finite; the checkpoint restores equal;
+            7d  CUDA-event medians: K3 on a 256^3 3-class pair (kernel,
+                plain, torch.bincount of the confusion pairs, bound), a
+                256^3 train step split into forward + loss, backward,
+                optimizer + BN fold and the Dice metric, its peak memory;
+                one more step under torch.profiler (device time by
+                kernel); one conv layer's weight gradient alone
+            7e  the kernels line: one JSON line describing every ported
+                kernel (K1, K2, K3)
+8. ok       the last line, {"ok": true, "device": {...}}
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line. Without a CUDA device (and without --cpu-rehearsal) it exits 1.
---cpu-rehearsal runs phases 1, 4 and 5 at a tiny size on the CPU with the
-plain versions, to find wrong paths and shapes without a card; it never
-prints the ok line.
+--cpu-rehearsal runs phases 1, 4, 5, 7b and 7c at a tiny size on the CPU
+with the plain versions, to find wrong paths and shapes without a card; it
+never prints the ok line.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,21 +95,28 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import synchronize  # noqa: E402
+from repro_torch import synchronize, tree  # noqa: E402
 from repro_torch.core import conform, meshnet  # noqa: E402
 from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
 from repro_torch.data import mri  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import dice as k3  # noqa: E402
 from repro_torch.kernels import dilated_conv3d as k1  # noqa: E402
 from repro_torch.kernels import megakernel as k2  # noqa: E402
 from repro_torch.serving.engine import SegmentationEngine  # noqa: E402
+from repro_torch.training import checkpoint, losses, optimizer, trainer  # noqa: E402
 
 KERNEL_REL_TOL = 5e-5
 FORWARD_REL_TOL = 2e-4  # the fused forward (tests/test_executors.py)
 MEGA_FORWARD_REL_TOL = 1e-4  # the megakernel forward (tests/test_megakernel.py)
 ARGMAX_AGREE = 0.9999
+TRAIN_REL_TOL = 1e-4  # card against CPU: a train step's loss terms and grad norm
+GRAD_TOL = 1e-4  # card against CPU: each gradient leaf, times the global norm
+TRAIN_STEPS = 8
+EVAL_SUBJECTS = 2
 SEED = 0
 
 # Published peaks per card: fp32 outside the tensor cores, device memory.
@@ -423,6 +459,53 @@ def profile_request(engine, vol, executor, unprofiled_s: float) -> None:
         print(f"profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
 
 
+def profile_step(run_step, unprofiled_ms: float) -> None:
+    """Device time of one more train step by kernel, from a torch.profiler
+    trace, and the share of the step the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in cuda) / 1e3
+    if busy_ms == 0:
+        print("profile: the profiler saw no device time; busy share not measured")
+        return
+    print(f"profile (train step): device busy {busy_ms:.3f} ms of a profiled step of {wall * 1e3:.3f} ms "
+          f"({busy_ms / (wall * 1e3):.1%}); {busy_ms / unprofiled_ms:.1%} of the unprofiled step's {unprofiled_ms:.3f} ms; "
+          f"{sum(e.count for e in cuda)} device operations")
+    for e in sorted(cuda, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+
+
+def conv_weight_grad_times(dev, size: int, gen: torch.Generator) -> None:
+    """The training conv's weight gradient alone (cuDNN, TF32 off), one
+    5 -> 5 layer at d = 4: the forward, and the forward with the weight
+    gradient, for the channels-last view the trainer passes and a
+    channels-first copy, with cuDNN's autotuning off and on."""
+    x = torch.randn((1, size, size, size, 5), generator=gen).to(dev)
+    w = (0.2 * torch.randn((5, 5, 3, 3, 3), generator=gen)).to(dev).requires_grad_(True)
+    before = torch.backends.cudnn.benchmark
+    try:
+        for layout, xin in (("channels-last view", x.permute(0, 4, 1, 2, 3)),
+                            ("channels-first", x.permute(0, 4, 1, 2, 3).contiguous())):
+            for autotune in (False, True):
+                torch.backends.cudnn.benchmark = autotune
+                out = F.conv3d(xin, w, padding=4, dilation=4)
+                go = torch.ones_like(out)
+                del out
+                fwd_ms = time_ms(lambda: F.conv3d(xin, w, padding=4, dilation=4), runs=5)
+                wgrad_ms = time_ms(lambda: torch.autograd.grad(F.conv3d(xin, w, padding=4, dilation=4), w, go), runs=5)
+                print("times conv weight gradient " + json.dumps(dict(
+                    layer="5->5 d=4", layout=layout, cudnn_benchmark=autotune, forward_ms=fwd_ms,
+                    forward_and_weight_grad_ms=wgrad_ms)))
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
 def bound(ops_: float, bytes_: float, peak_flops: float, peak_bw: float) -> tuple[float, str]:
     t_ops, t_bytes = ops_ / peak_flops * 1e3, bytes_ / peak_bw * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
@@ -508,9 +591,226 @@ def phase_times(dev, card: str, size: int) -> tuple[list[dict], list[dict]]:
     return rows, seg_rows
 
 
-def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err) -> dict:
-    """Per-forward numbers of each kernel: one gwm_light forward at 256^3,
-    9 launches of K1 or one launch of K2 per segment of the plan."""
+def dice_labels(gen: torch.Generator, shape, classes: int, dtype, device, *, absent=None, outside=True):
+    """Labels in [0, C) drawn on the CPU; with ``outside`` about 2 % are -1,
+    C or 2^30 (they count nowhere); class ``absent`` never occurs."""
+    lab = torch.randint(0, classes, shape, generator=gen)
+    if absent is not None:
+        lab[lab == absent] = (absent + 1) % classes
+    if outside:
+        flat = lab.view(-1)
+        picks = torch.nonzero(torch.rand(flat.numel(), generator=gen) < 0.02)[:, 0]
+        flat[picks] = torch.tensor([-1, classes, 2**30])[torch.arange(picks.numel()) % 3]
+    return lab.to(dtype).to(device)
+
+
+def phase_train_parity_k3(dev) -> tuple[int, int]:
+    print("== phase 7a: K3 parity against the plain version (card)")
+    gen = torch.Generator().manual_seed(SEED + 71)
+    shapes = [(256, 256, 256), (31, 33, 17), (2, 31, 33, 17)]
+    dtypes = [(torch.int32, torch.int32), (torch.int64, torch.int32), (torch.int64, torch.int64)]
+    n = worst = 0
+    for classes, shape, (pdt, tdt) in itertools.product((2, 3, 50, 104), shapes, dtypes):
+        absent = classes - 1
+        pred = dice_labels(gen, shape, classes, pdt, dev, absent=absent)
+        truth = dice_labels(gen, shape, classes, tdt, dev, absent=absent)
+        got = k3.dice_counts(pred, truth, classes)
+        torch.cuda.synchronize()
+        expect = ref.dice_counts(pred, truth, classes)
+        what = f"K3 C={classes} {shape} {str(pdt)[6:]}/{str(tdt)[6:]}"
+        worst = max(worst, int((got.long() - expect.long()).abs().max()))
+        check(torch.equal(got, expect), f"{what}: counts differ from the plain version")
+        check(int(got[absent].abs().sum()) == 0, f"{what}: the absent class counted")
+        score = ops.dice(pred, truth, classes)
+        plain_score = ops.dice_from_counts(expect)
+        check(bool(score.view(1).view(torch.int32) == plain_score.view(1).view(torch.int32)),
+              f"{what}: ops.dice {float(score)!r} != dice_from_counts {float(plain_score)!r}")
+        n += 1
+        if shape[0] == 256 or classes == 104:
+            print(f"{what}: counts equal; dice {float(score):.7f}")
+    print(f"K3: {n} cases, counts equal to the plain version in every one")
+    return n, worst
+
+
+def grads_and_step(cfg, params, vol, lab, dev):
+    """One train step of ``cfg`` on ``dev`` from copies of ``params`` and
+    the batch: (gradients, metrics of make_train_step)."""
+    params = tree.map(lambda t: t.to(dev), params)
+    vol, lab = vol.to(dev), lab.to(dev)
+    _, _, _, grads = trainer.loss_and_grads(params, vol, lab, cfg)
+    state = optimizer.adamw_init(params, cfg.opt)
+    _, _, metrics = trainer.make_train_step(cfg)(params, state, vol, lab)
+    return grads, metrics
+
+
+def phase_train_step_parity(dev, size: int) -> None:
+    print(f"== phase 7b: one gwm_light train step at {size}^3, batch 2, on {dev.type} and on the CPU")
+    cfg = trainer.TrainConfig(
+        model=dataclasses.replace(meshnet.PAPER_MODELS["gwm_light"], dropout_rate=0.0),
+        data=mri.DataLoaderConfig(mri=mri.SyntheticMRIConfig(shape=(size,) * 3), batch_size=2, seed=SEED),
+    )
+    params = meshnet.init(cfg.model, generator=torch.Generator().manual_seed(SEED + 72), device="cpu")
+    vol, lab = next(iter(mri.DataLoader(cfg.data, device="cpu")))
+    cpu_grads, cpu_metrics = grads_and_step(cfg, params, vol, lab, torch.device("cpu"))
+    grads, metrics = grads_and_step(cfg, params, vol, lab, dev)
+    for k in ("loss", "ce", "soft_dice_loss", "grad_norm"):
+        got, expect = float(metrics[k]), float(cpu_metrics[k])
+        rel = abs(got - expect) / max(abs(expect), 1e-30)
+        print(f"{k}: {dev.type} {got!r} cpu {expect!r} rel {rel:.3e}")
+        check(rel <= TRAIN_REL_TOL, f"train step {k} rel err {rel} > {TRAIN_REL_TOL}")
+    gnorm = float(optimizer.global_norm(cpu_grads))
+    worst, worst_bias = 0.0, 0.0
+    for (i, layer), cpu_layer in zip(enumerate(grads["layers"] + [grads["head"]]), cpu_grads["layers"] + [cpu_grads["head"]]):
+        for name, g in layer.items():
+            err = float((g.cpu() - cpu_layer[name]).abs().max()) / gnorm
+            if name == "b" and i < len(grads["layers"]) and cfg.model.use_batchnorm:
+                worst_bias = max(worst_bias, err)  # exact gradient 0: rounding noise
+                continue
+            worst = max(worst, err)
+            check(err <= GRAD_TOL, f"gradient of layer {i} {name}: error {err} of the global norm > {GRAD_TOL}")
+    print(f"gradients: global norm {gnorm!r}; worst leaf error {worst:.3e} of it "
+          f"(pre-BN conv biases, not held: {worst_bias:.3e})")
+    dice, cpu_dice = float(metrics["dice"]), float(cpu_metrics["dice"])
+    if dice == cpu_dice:
+        print(f"dice: {dice!r} on both")
+        return
+    # The Dice of equal hard labels is equal; a logit within rounding of a
+    # tie can flip one voxel's argmax between the two devices.
+    hard = torch.argmax(meshnet.apply_with_stats(tree.map(lambda t: t.to(dev), params), vol.to(dev), cfg.model)[0], -1)
+    cpu_hard = torch.argmax(meshnet.apply_with_stats(params, vol, cfg.model)[0], -1)
+    differ = int((hard.cpu() != cpu_hard).sum())
+    agree = 1.0 - differ / cpu_hard.numel()
+    print(f"dice: {dev.type} {dice!r} cpu {cpu_dice!r}; argmax differs on {differ} voxels ({agree:.6%} agree)")
+    check(differ > 0, "the hard labels agree but the Dice does not")
+    check(agree >= ARGMAX_AGREE, f"argmax agreement {agree} < {ARGMAX_AGREE}")
+
+
+def phase_train(dev, size: int) -> dict:
+    print(f"== phase 7c: trainer.train, gwm_light at {size}^3, batch 1, dropout 0.1, {TRAIN_STEPS} steps, "
+          f"checkpoint, evaluate on {EVAL_SUBJECTS} subjects: main path of K3 (and K1)")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg = trainer.TrainConfig(
+        model=dataclasses.replace(meshnet.PAPER_MODELS["gwm_light"], dropout_rate=0.1),
+        data=mri.DataLoaderConfig(mri=mri.SyntheticMRIConfig(shape=(size,) * 3), batch_size=1, seed=SEED),
+        steps=TRAIN_STEPS, eval_subjects=EVAL_SUBJECTS, log_every=1,
+        ckpt_dir=str(ckpt_dir), ckpt_every=TRAIN_STEPS, seed=SEED,
+    )
+    synchronize(dev)
+    k1.launches = k2.launches = k3.launches = 0  # main path starts
+    t0 = time.perf_counter()
+    res = trainer.train(cfg, verbose=True, device=dev)
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches}  # main path ends
+    print(f"train: {TRAIN_STEPS} steps + checkpoint + evaluate in {wall:.3f} s wall; launches {counts}; "
+          f"final held-out dice {res.final_dice!r}")
+    for m in res.history:
+        check(all(math.isfinite(v) for v in m.values()), f"step {m['step']} metrics finite: {m}")
+    check(math.isfinite(res.final_dice), "held-out dice finite")
+    if dev.type == "cuda":
+        expected = {"K1": len(cfg.model.dilations) * EVAL_SUBJECTS, "K2": 0, "K3": TRAIN_STEPS + EVAL_SUBJECTS}
+        check(counts == expected, f"train path launched {counts}, expected {expected}")
+    latest = checkpoint.latest_step_dir(str(ckpt_dir))
+    restored, manifest = checkpoint.restore(latest, device=dev)
+    trained = {"params": res.params, "opt_state": res.opt_state}
+    pairs = list(zip(tree.leaves(restored), tree.leaves(trained)))
+    check(manifest["step"] == TRAIN_STEPS and type(restored["opt_state"]) is optimizer.AdamWState,
+          f"checkpoint step {manifest['step']} and state type {type(restored['opt_state']).__name__}")
+    check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs), "the checkpoint restores equal")
+    print(f"checkpoint {Path(latest).name}: {len(pairs)} tensors restored equal on {dev.type}")
+    return {"counts": counts, "cfg": cfg, "params": res.params, "opt_state": res.opt_state}
+
+
+def k3_work(n: int, classes: int, pred_bytes: int, truth_bytes: int) -> tuple[int, int]:
+    """(operations, bytes) of one count: K3 reads each label once and writes
+    the (C, 3) int32 counts; a few integer operations a label."""
+    return 6 * n, n * (pred_bytes + truth_bytes) + 12 * classes
+
+
+def phase_train_times(dev, card: str, size: int, trained: dict) -> dict:
+    print(f"== phase 7d: times at the training path's shapes ({size}^3, card: {card})")
+    _, peak_flops, peak_bw = peaks_for(card)
+    gen = torch.Generator().manual_seed(SEED + 74)
+    classes = 3
+    shape = (size,) * 3
+    pred = torch.randint(0, classes, shape, generator=gen).to(dev)  # int64, as argmax gives
+    truth = torch.randint(0, classes, shape, generator=gen, dtype=torch.int32).to(dev)
+    n = pred.numel()
+    check(torch.equal(k3.dice_counts(pred, truth, classes), ref.dice_counts(pred, truth, classes)),
+          "K3 on the timing pair")
+    pairs = (pred * classes + truth).view(-1)  # each voxel's confusion pair, for torch.bincount
+    kernel_ms = time_ms(lambda: k3.dice_counts(pred, truth, classes))
+    plain_ms = time_ms(lambda: ref.dice_counts(pred, truth, classes))
+    library_ms = time_ms(lambda: torch.bincount(pairs, minlength=classes * classes))
+    ops_, bytes_ = k3_work(n, classes, 8, 4)
+    bound_ms, bound_by = bound(ops_, bytes_, peak_flops, peak_bw)
+    k3_row = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                  bound_by=bound_by, ops=ops_, bytes=bytes_, classes=classes, voxels=n)
+    print("times K3 " + json.dumps(k3_row))
+    del pred, truth, pairs
+
+    cfg, params, state = trained["cfg"], trained["params"], trained["opt_state"]
+    vol, lab = next(iter(mri.DataLoader(cfg.data, device=dev)))
+    drop = torch.Generator(device=dev).manual_seed(SEED + 75)
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
+    leaf_params = tree.unflatten(params, leaves)
+    runs, slow_runs = 10, 5  # the backward and the whole step take seconds each
+
+    def forward_loss():
+        with meshnet.fp32_convs():
+            return trainer.forward_loss(leaf_params, vol, lab, cfg, drop)
+
+    fwd_ms = time_ms(forward_loss, runs=runs)
+    events = []
+    for _ in range(slow_runs + 1):
+        loss, _, _ = forward_loss()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with meshnet.fp32_convs():
+            start.record()
+            torch.autograd.grad(loss, leaves, allow_unused=True)
+            end.record()
+        events.append((start, end))
+        del loss
+    torch.cuda.synchronize()
+    bwd_ms = statistics.median(s.elapsed_time(e) for s, e in events[1:])
+    _, _, stats, grads = trainer.loss_and_grads(params, vol, lab, cfg, drop)
+    opt_ms = time_ms(lambda: trainer.apply_update(params, state, grads, stats, cfg), runs=runs)
+    with torch.no_grad():
+        logits = meshnet.apply_with_stats(params, vol, cfg.model)[0]
+    dice_ms = time_ms(lambda: losses.dice_score(torch.argmax(logits, -1), lab, cfg.model.num_classes), runs=runs)
+    step = trainer.make_train_step(cfg)
+    step_ms = time_ms(lambda: step(params, state, vol, lab, drop), runs=slow_runs, warmup=1)
+    del logits, grads, stats
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(params, state, vol, lab, drop)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_row = dict(
+        volume=list(shape), batch=cfg.data.batch_size, dropout_rate=cfg.model.dropout_rate,
+        forward_loss_ms=fwd_ms, backward_ms=bwd_ms, optimizer_bn_fold_ms=opt_ms, dice_metric_ms=dice_ms,
+        step_ms=step_ms, peak_bytes=peak, resident_bytes_before=base,
+    )
+    print("times train step " + json.dumps(step_row))
+    print(f"train step at {size}^3: forward + loss (Dice metric included) {fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, "
+          f"optimizer + BN fold {opt_ms:.3f} ms, Dice metric alone {dice_ms:.3f} ms; whole step {step_ms:.3f} ms; "
+          f"peak device memory {peak / 2**30:.3f} GiB ({base / 2**20:.1f} MiB resident before)")
+    profile_step(lambda: step(params, state, vol, lab, drop), step_ms)
+    conv_weight_grad_times(dev, size, gen)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    print(f"after timing: clocks.sm, power.draw, power.limit, temperature: {smi.stdout.strip()}")
+    return k3_row
+
+
+def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err) -> dict:
+    """Per-forward numbers of K1 and K2: one gwm_light forward at 256^3,
+    9 launches of K1 or one launch of K2 per segment of the plan; K3's per
+    count of one 256^3 3-class pair."""
 
     def totals(rs, per=lambda r: 1):
         t = {k: sum(r[k] * per(r) for r in rs) for k in ("kernel_ms", "plain_ms")}
@@ -555,6 +855,23 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err) -> dict:
                 "plan_bound_ms": sum(r["plan_bound_ms"] for r in seg_rows),
                 "per": f"one gwm_light forward at 256^3 ({len(seg_rows)} launches, one a segment); sums of per-segment medians",
             },
+            {
+                "name": "dice_counts",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/dice.cu",
+                "replaces": "src/repro/kernels/dice.py:20",
+                "tpu_kernel": "src/repro/kernels/dice.py::_dice_kernel",
+                "launches": launches["train"]["K3"],
+                "max_abs_err": k3_err,
+                "ms": k3_row["kernel_ms"],
+                "plain_ms": k3_row["plain_ms"],
+                "bound_ms": k3_row["bound_ms"],
+                "bound_by": k3_row["bound_by"],
+                "library_ms": k3_row["library_ms"],
+                "library": "torch.bincount(pred * C + truth, minlength=C * C), the confusion matrix the counts follow from",
+                "per": "one 256^3 3-class count (int64 pred, int32 truth); launches from the train path "
+                       f"({TRAIN_STEPS} steps + {EVAL_SUBJECTS} held-out subjects)",
+            },
         ]
     }
 
@@ -581,10 +898,18 @@ def main(argv=None) -> int:
     phase_forward(dev, size)
     launches = phase_serve(dev, size)
     if rehearsal:
+        phase_train_step_parity(dev, 16)
+        phase_train(dev, size)
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
     rows, seg_rows = phase_times(dev, card, size)
-    print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err)))
+    k3_cases, k3_err = phase_train_parity_k3(dev)
+    phase_train_step_parity(dev, 64)
+    trained = phase_train(dev, size)
+    launches["train"] = trained["counts"]
+    check(launches["train"]["K3"] > 0, "K3 was not launched on its main path")
+    k3_row = phase_train_times(dev, card, size, trained)
+    print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

@@ -5,7 +5,9 @@ are a ``{"layers": [dict, ...], "head": dict}`` tree of arrays
 (``w``/``b`` per layer, ``bn_*`` running statistics when the model has
 BatchNorm). A caller holding reference arrays converts them to numpy
 itself (``jax.tree.map(np.asarray, params)``); this module never touches
-the reference's array type.
+the reference's array type. Trees may hold NamedTuple nodes, as the
+optimizer states do (``training.optimizer.AdamWState``); they cross as
+the same NamedTuple type.
 """
 
 from __future__ import annotations
@@ -15,27 +17,19 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 
 
-def _map(tree: Any, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(v, fn) for v in tree)
-    return fn(tree)
-
-
-def params_from_numpy(tree: Any, device=None) -> Any:
+def params_from_numpy(params: Any, device=None) -> Any:
     """A params tree of numpy arrays -> the same tree of tensors on
     ``device`` (copied; bit-equal values and the same dtypes)."""
     dev = resolve_device(device)
-    return _map(tree, lambda a: torch.tensor(np.asarray(a), device=dev))
+    return tree.map(lambda a: torch.tensor(np.asarray(a), device=dev), params)
 
 
 def params_to_numpy(params: Any) -> Any:
     """A params tree of tensors -> the same tree of numpy arrays."""
-    return _map(params, lambda t: t.detach().cpu().numpy())
+    return tree.map(lambda t: t.detach().cpu().numpy(), params)
 
 
 def volume_from_numpy(arr, device=None) -> torch.Tensor:

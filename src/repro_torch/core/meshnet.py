@@ -8,17 +8,27 @@ DHWIO conv weights, so weights cross between the packages unchanged
 (``repro_torch.bridge``). ``MeshNet`` is the ``nn.Module`` over such a
 tree.
 
-Inference only in this slice: training-mode BatchNorm statistics,
-dropout and ``apply_with_stats`` come with the training slice.
+The eval forward (``apply``, ``predict``) computes each conv with the
+plain version of K1 (``kernels/ref.py``), which the executors' kernel
+paths are held to. The training forward (``apply(training=True)``,
+``apply_with_stats``) normalises with the batch's statistics, drops whole
+channels (Dropout3d) and computes each conv with ``F.conv3d`` on a
+channels-first view of the channels-last data, under autograd. That is
+the library counterpart of the reference's XLA convolution, chosen for
+memory: the plain conv's 27 shifted slices would each be kept for the
+backward, 27 copies of the input per layer. TF32 is off for it
+(``fp32_convs``), as the reference computes in fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
@@ -114,29 +124,119 @@ def dilated_conv3d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: 
     return ref.dilated_conv3d(x, w, b, dilation=dilation)
 
 
-def batchnorm(x: torch.Tensor, layer: dict, *, eps: float = 1e-5) -> torch.Tensor:
-    """Inference BatchNorm3d with the layer's running statistics."""
-    return (x - layer["bn_mean"]) * torch.rsqrt(layer["bn_var"] + eps) * layer["bn_scale"] + layer["bn_bias"]
+@contextlib.contextmanager
+def fp32_convs():
+    """Within the block, cuDNN convolutions compute in full fp32: TF32,
+    PyTorch's default for them, is off (restored on exit). A backward that
+    should match must run inside the block too."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
 
 
-def apply_layer(layer: dict, x: torch.Tensor, dilation: int, cfg: MeshNetConfig) -> torch.Tensor:
-    """One MeshNet block in eval mode: conv -> BN -> ReLU."""
-    x = dilated_conv3d(x, layer["w"], layer["b"], dilation)
+def conv3d_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int) -> torch.Tensor:
+    """'Same'-padded 3-D dilated convolution + bias for the training
+    forward: ``F.conv3d`` on the channels-first view of ``x`` (B, D, H, W,
+    Cin) and of the DHWIO ``w``, differentiable, channels-last out."""
+    k = w.shape[0]
+    pad = dilation * (k - 1) // 2
+    out = F.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2), b, padding=pad, dilation=dilation)
+    return out.permute(0, 2, 3, 4, 1)
+
+
+def batchnorm(
+    x: torch.Tensor, layer: dict, *, training: bool = False, eps: float = 1e-5
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """BatchNorm3d over (B, D, H, W) -> (y, mean, var). Training: the
+    batch's mean and biased variance (the reference's ``jnp.var``); eval:
+    the layer's running statistics."""
+    if training:
+        mean = x.mean(dim=(0, 1, 2, 3))
+        var = x.var(dim=(0, 1, 2, 3), unbiased=False)
+    else:
+        mean, var = layer["bn_mean"], layer["bn_var"]
+    y = (x - mean) * torch.rsqrt(var + eps) * layer["bn_scale"] + layer["bn_bias"]
+    return y, mean, var
+
+
+def dropout3d(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Drop whole channels per sample with probability ``rate`` and scale
+    the kept ones by 1/keep; the (B, 1, 1, 1, C) mask is drawn from
+    ``generator`` on its device."""
+    keep = 1.0 - rate
+    shape = (x.shape[0], 1, 1, 1, x.shape[-1])
+    mask = (torch.rand(shape, generator=generator, device=generator.device) < keep).to(x.device, x.dtype)
+    return x * mask / keep
+
+
+def apply_layer(
+    layer: dict,
+    x: torch.Tensor,
+    dilation: int,
+    cfg: MeshNetConfig,
+    *,
+    training: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> tuple[torch.Tensor, Optional[tuple[torch.Tensor, torch.Tensor]]]:
+    """One MeshNet block: conv -> BN -> ReLU (-> Dropout3d when training
+    with a generator and a dropout rate) -> (x, (mean, var) or None)."""
+    conv = conv3d_train if training else dilated_conv3d
+    x = conv(x, layer["w"], layer["b"], dilation)
+    stats = None
     if cfg.use_batchnorm:
-        x = batchnorm(x, layer)
-    return torch.relu(x)
+        x, mean, var = batchnorm(x, layer, training=training)
+        stats = (mean, var)
+    x = torch.relu(x)
+    if training and cfg.dropout_rate > 0.0 and generator is not None:
+        x = dropout3d(x, cfg.dropout_rate, generator)
+    return x, stats
 
 
-def apply(params: Params, x: torch.Tensor, cfg: MeshNetConfig) -> torch.Tensor:
-    """Eval forward -> logits (B, D, H, W, num_classes). Each layer's
-    activation is freed when the loop rebinds ``x``, so the memory held
-    does not grow with depth."""
+def apply(
+    params: Params,
+    x: torch.Tensor,
+    cfg: MeshNetConfig,
+    *,
+    training: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Forward -> logits (B, D, H, W, num_classes); eval mode unless
+    ``training`` (then as ``apply_with_stats``, statistics dropped). Each
+    layer's activation is freed when the loop rebinds ``x``, so in eval
+    mode the memory held does not grow with depth."""
+    if training:
+        return apply_with_stats(params, x, cfg, generator=generator)[0]
     if x.ndim == 4:
         x = x[..., None]
     for i, dilation in enumerate(cfg.dilations):
-        x = apply_layer(params["layers"][i], x, dilation, cfg)
+        x, _ = apply_layer(params["layers"][i], x, dilation, cfg)
     head = params["head"]
     return dilated_conv3d(x, head["w"], head["b"], dilation=1)
+
+
+def apply_with_stats(
+    params: Params,
+    x: torch.Tensor,
+    cfg: MeshNetConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+) -> tuple[torch.Tensor, list]:
+    """Training forward -> (logits, stats): BatchNorm on the batch's
+    statistics, Dropout3d from ``generator`` when the config has a rate,
+    and per layer the batch's (mean, var), or None without BatchNorm, for
+    the trainer to fold into the running estimates."""
+    if x.ndim == 4:
+        x = x[..., None]
+    stats = []
+    with fp32_convs():
+        for i, dilation in enumerate(cfg.dilations):
+            x, st = apply_layer(params["layers"][i], x, dilation, cfg, training=True, generator=generator)
+            stats.append(st)
+        head = params["head"]
+        return conv3d_train(x, head["w"], head["b"], dilation=1), stats
 
 
 def predict(params: Params, x: torch.Tensor, cfg: MeshNetConfig) -> torch.Tensor:

@@ -9,6 +9,9 @@ so no padding to a block multiple is needed.
 ``meshnet_apply_megakernel`` is the ``cuda_megakernel`` backend: one call
 of K2 per segment of a depth-first plan (kernels/megakernel.py), so the
 hidden activations inside a segment never reach device memory.
+
+``dice`` is macro Dice from hard labels through K3, the per-class count
+kernel (kernels/dice.py): one launch per call on the card.
 """
 
 from __future__ import annotations
@@ -18,9 +21,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import dice as dice_kernel
 from repro_torch.kernels import dilated_conv3d as conv_kernel
 from repro_torch.kernels import megakernel as mega_kernel
 from repro_torch.kernels import quantize
+
+
+dice_from_counts = dice_kernel.dice_from_counts
 
 
 def dilated_conv3d(
@@ -118,3 +125,9 @@ def megakernel_operands(params, cfg, seg: mega_kernel.Segment) -> tuple[list, Op
         layers.append((layer["w"], layer["b"], scale, offset))
     head = (params["head"]["w"][0, 0, 0], params["head"]["b"]) if seg.fuse_head else None
     return layers, head
+
+
+def dice(pred: torch.Tensor, truth: torch.Tensor, num_classes: int, eps: float = 1e-7) -> torch.Tensor:
+    """Macro Dice score of hard labels through the count kernel (K3):
+    ``dice_from_counts(dice_counts(pred, truth, num_classes))``."""
+    return dice_from_counts(dice_kernel.dice_counts(pred, truth, num_classes), eps)

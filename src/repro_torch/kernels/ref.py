@@ -3,7 +3,8 @@
 Each is the CPU path of its kernel's wrapper and, on the card, the version
 ``chip_smoke.py`` holds the kernel against. They repeat the kernel's
 arithmetic in plain tensor code and are no yardstick of speed:
-``dilated_conv3d`` for K1, ``megakernel_segment`` for K2.
+``dilated_conv3d`` for K1, ``megakernel_segment`` for K2, ``dice_counts``
+for K3.
 """
 
 from __future__ import annotations
@@ -86,3 +87,15 @@ def megakernel_segment(x: torch.Tensor, pln, i: int, layers, head=None) -> torch
     out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=x.dtype, device=x.device)
     out[:, o : o + padded[0], o : o + padded[1], o : o + padded[2], :] = act
     return out
+
+
+def dice_counts(pred: torch.Tensor, truth: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Per-class (intersection, |pred_c|, |truth_c|) counts, (C, 3) int32,
+    from per-class comparisons and sums; a label outside [0, C) matches no
+    class (counterpart of ``repro/kernels/ref.py::dice_counts``)."""
+    rows = []
+    for c in range(num_classes):
+        x = pred == c
+        y = truth == c
+        rows.append(torch.stack([(x & y).sum(), x.sum(), y.sum()]))
+    return torch.stack(rows).to(torch.int32)

@@ -7,7 +7,9 @@ import pytest
 import torch
 
 from repro.core import meshnet as ref_meshnet
-from repro_torch import bridge
+from repro.training import optimizer as ref_opt
+from repro_torch import bridge, tree
+from repro_torch.training import optimizer as opt
 
 
 def _ref_params(cfg):
@@ -46,3 +48,26 @@ def test_volume_round_trip_bit_equal():
     t = bridge.volume_from_numpy(vol, device="cpu")
     assert t.shape == vol.shape and t.dtype == torch.float32
     np.testing.assert_array_equal(bridge.volume_to_numpy(t).view(np.uint32), vol.view(np.uint32))
+
+
+def test_adamw_state_round_trip_keeps_the_namedtuple():
+    """An optimizer state (a NamedTuple of int32 step and moment trees)
+    crosses numpy -> port -> numpy bit-equal, as the same NamedTuple type;
+    the port's own state crosses to numpy and back the same way."""
+    params = _ref_params(ref_meshnet.MeshNetConfig(dilations=(1, 2)))
+    ref_state = jax.tree.map(np.asarray, ref_opt.adamw_init(jax.tree.map(jax.numpy.asarray, params), ref_opt.AdamWConfig()))
+    ref_state = ref_state._replace(mu=jax.tree.map(lambda a: a + 0.5, ref_state.mu))
+    ported = bridge.params_from_numpy(ref_state, device="cpu")
+    assert type(ported) is ref_opt.AdamWState and ported.step.dtype == torch.int32
+    back = bridge.params_to_numpy(ported)
+    assert type(back) is ref_opt.AdamWState
+    for a, b in zip(jax.tree.leaves(ref_state), jax.tree.leaves(back)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+
+    state = opt.adamw_init(bridge.params_from_numpy(params, device="cpu"), opt.AdamWConfig())
+    as_numpy = bridge.params_to_numpy(state)
+    assert type(as_numpy) is opt.AdamWState and as_numpy.step.dtype == np.int32
+    again = bridge.params_from_numpy(as_numpy, device="cpu")
+    assert type(again) is opt.AdamWState
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(again), tree.leaves(state)))

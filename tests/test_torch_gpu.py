@@ -1,19 +1,27 @@
-"""K1, K2 and their forwards on the CUDA card, against their plain versions
-on the same card. Marked ``gpu``: without a card every test skips (the
-fixture decides, at run time). Run on a machine with an H100:
+"""K1, K2, K3 and their paths on the CUDA card, against their plain
+versions on the same card (and one train step against the CPU). Marked
+``gpu``: without a card every test skips (the fixture decides, at run
+time). Run on a machine with an H100:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 This file imports torch only, so it runs where jax is not installed."""
 
+import dataclasses
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import tree
 from repro_torch.core import executors, meshnet, pipeline
+from repro_torch.data import mri
+from repro_torch.kernels import dice as dice_kernel
 from repro_torch.kernels import dilated_conv3d as conv_kernel
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import ops, ref
+from repro_torch.training import optimizer, trainer
 
 pytestmark = pytest.mark.gpu
 
@@ -188,3 +196,79 @@ def test_pipeline_on_the_card_uses_the_megakernel(cuda):
     segments = len(mk.plan_for_config(cfg, (32, 32, 32)).segments)
     assert (mk.launches - before[0], conv_kernel.launches - before[1]) == (segments, 0)
     assert res.segmentation.device.type == "cuda" and res.segmentation.shape == (32, 32, 32)
+
+
+def _dice_labels(seed, shape, classes, dtype, device, absent):
+    """Labels in [0, C) without class ``absent``; about 2 % are -1, C or
+    2^30, which count nowhere."""
+    g = torch.Generator().manual_seed(seed)
+    lab = torch.randint(0, classes, shape, generator=g)
+    lab[lab == absent] = (absent + 1) % classes
+    flat = lab.view(-1)
+    picks = torch.nonzero(torch.rand(flat.numel(), generator=g) < 0.02)[:, 0]
+    flat[picks] = torch.tensor([-1, classes, 2**30])[torch.arange(picks.numel()) % 3]
+    return lab.to(dtype).to(device)
+
+
+@pytest.mark.parametrize(
+    "classes,shape,dtypes",
+    list(itertools.product(
+        (2, 3, 50, 104),
+        ((256, 256, 256), (31, 33, 17), (2, 31, 33, 17)),
+        ((torch.int32, torch.int32), (torch.int64, torch.int32), (torch.int64, torch.int64)),
+    )),
+)
+def test_dice_counts_match_plain_version(cuda, classes, shape, dtypes):
+    pred = _dice_labels(classes, shape, classes, dtypes[0], cuda, absent=classes - 1)
+    truth = _dice_labels(classes + 1, shape, classes, dtypes[1], cuda, absent=classes - 1)
+    before = dice_kernel.launches
+    got = dice_kernel.dice_counts(pred, truth, classes)
+    torch.cuda.synchronize()
+    assert dice_kernel.launches == before + 1
+    expect = ref.dice_counts(pred, truth, classes)
+    assert torch.equal(got, expect)
+    assert int(got[classes - 1].abs().sum()) == 0
+    score, plain = ops.dice(pred, truth, classes), ops.dice_from_counts(expect)
+    assert score.view(1).view(torch.int32).item() == plain.view(1).view(torch.int32).item()
+
+
+def test_dice_counts_rejects_what_it_does_not_take(cuda):
+    a = torch.zeros((4, 5, 6), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        dice_kernel.dice_counts(a.float(), a, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        dice_kernel.dice_counts(a.transpose(0, 2).contiguous().transpose(0, 2), a, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        dice_kernel.dice_counts(a, a.cpu(), 3)
+    empty = torch.zeros((0, 3), dtype=torch.int64, device=cuda)
+    assert dice_kernel.dice_counts(empty, empty, 2).tolist() == [[0, 0, 0], [0, 0, 0]]
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One gwm_light step at 64^3, batch 2, dropout 0 from the same params
+    and batch: loss terms and grad norm within 1e-4 relative, every
+    gradient leaf but the pre-BN conv biases (exact gradient 0, rounding
+    noise) within 1e-4 of the global norm; the step launches K3 once."""
+    cfg = trainer.TrainConfig(
+        model=dataclasses.replace(meshnet.PAPER_MODELS["gwm_light"], dropout_rate=0.0),
+        data=mri.DataLoaderConfig(mri=mri.SyntheticMRIConfig(shape=(64, 64, 64)), batch_size=2),
+    )
+    params = meshnet.init(cfg.model, generator=torch.Generator().manual_seed(9), device="cpu")
+    vol, lab = next(iter(mri.DataLoader(cfg.data, device="cpu")))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree.map(lambda t: t.to(dev), params)
+        _, _, _, grads = trainer.loss_and_grads(p, vol.to(dev), lab.to(dev), cfg)
+        before = dice_kernel.launches
+        _, _, metrics = trainer.make_train_step(cfg)(p, optimizer.adamw_init(p, cfg.opt), vol.to(dev), lab.to(dev))
+        out[dev.type] = (grads, metrics, dice_kernel.launches - before)
+    (cpu_grads, cpu_metrics, cpu_launches), (grads, metrics, launched) = out["cpu"], out["cuda"]
+    assert (cpu_launches, launched) == (0, 1)
+    for k in ("loss", "ce", "soft_dice_loss", "grad_norm"):
+        assert abs(float(metrics[k]) - float(cpu_metrics[k])) <= 1e-4 * abs(float(cpu_metrics[k])), k
+    gnorm = float(optimizer.global_norm(cpu_grads))
+    for i, (layer, cpu_layer) in enumerate(zip(grads["layers"] + [grads["head"]], cpu_grads["layers"] + [cpu_grads["head"]])):
+        for name, g in layer.items():
+            if name == "b" and i < len(cfg.model.dilations):
+                continue
+            assert float((g.cpu() - cpu_layer[name]).abs().max()) <= 1e-4 * gnorm, (i, name)

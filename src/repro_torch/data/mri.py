@@ -23,7 +23,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.training.losses import one_hot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +95,6 @@ class DataLoaderConfig:
     batch_size: int = 2
     subvolumes: bool = False  # CubeDivider path
     cube: int = 32
-    overlap: int = 0
     num_classes: int = 3
     one_hot: bool = False
     seed: int = 0
@@ -129,7 +127,7 @@ class DataLoader:
             if cfg.subvolumes:
                 vol, lab = self._to_subvolumes(vol, lab, gen)
             if cfg.one_hot:
-                lab = one_hot(lab, cfg.num_classes)
+                lab = (lab[..., None] == torch.arange(cfg.num_classes, device=lab.device)).float()
             yield vol, lab
 
     def _to_subvolumes(self, vol: torch.Tensor, lab: torch.Tensor, gen: torch.Generator):

@@ -22,16 +22,11 @@
 // 256^3 int64/int32 pair at 3.35 TB/s. Each thread keeps kUnroll loads in
 // flight so that enough bytes are outstanding to approach that rate.
 //
-// Two ways to count, chosen by C:
-//  - C <= kRegClasses (the mask models' 2 and the tissue models' 3): every
-//    thread keeps 3 * kRegClasses counters in registers, a warp sums them
-//    with __reduce_add_sync, and lane 0 adds them into the block's shared
-//    counters. With so few classes every thread would otherwise hit the
-//    same few shared-memory words and serialise on their atomics.
-//  - larger C (the atlas models' 50 and 104): 3 * C shared counters
-//    (1,248 B at C = 104); each warp groups its lanes by class with
-//    __match_any_sync and one lane per group adds the group's size, so a
-//    volume dominated by one class costs one atomic per warp, not 32.
+// How it counts: each block keeps 3 * C shared counters (1,248 B at
+// C = 104). Each warp groups its lanes by class with __match_any_sync and
+// one lane per group adds the group's size, so a warp costs one shared
+// atomic per class it holds and column, not one per lane, however few the
+// classes are (2 and 3 for the mask and tissue models).
 //
 // Plain C entry points (bound from Python with ctypes); the launch goes on
 // the caller's stream, does not synchronise and allocates nothing.
@@ -44,7 +39,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 constexpr int kBlocksPerSM = 4;
-constexpr int kRegClasses = 4;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // The class of label v, or -1 when v is outside [0, C).
@@ -63,56 +57,6 @@ __device__ __forceinline__ void load_pair(const TP* __restrict__ pred,
   if (i < n) {
     p = class_of(pred[i], C);
     t = class_of(truth[i], C);
-  }
-}
-
-template <typename TP, typename TT>
-__global__ void __launch_bounds__(kThreads)
-dice_counts_registers(const TP* __restrict__ pred, const TT* __restrict__ truth,
-                      int64_t n, int C, int* __restrict__ out) {
-  __shared__ int s[3 * kRegClasses];
-  for (int i = threadIdx.x; i < 3 * kRegClasses; i += blockDim.x) s[i] = 0;
-  __syncthreads();
-  int inter[kRegClasses], psum[kRegClasses], tsum[kRegClasses];
-#pragma unroll
-  for (int c = 0; c < kRegClasses; ++c) inter[c] = psum[c] = tsum[c] = 0;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i0 < n;
-       i0 += kUnroll * stride) {
-    int p[kUnroll], t[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      load_pair(pred, truth, i0 + u * stride, n, C, p[u], t[u]);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int c = 0; c < kRegClasses; ++c) {
-        const int pc = p[u] == c;
-        const int tc = t[u] == c;
-        psum[c] += pc;
-        tsum[c] += tc;
-        inter[c] += pc & tc;
-      }
-    }
-  }
-  // Every lane reaches this point (no early return), as the full-mask
-  // reductions need.
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c = 0; c < kRegClasses; ++c) {
-    const int a = __reduce_add_sync(kFullMask, inter[c]);
-    const int b = __reduce_add_sync(kFullMask, psum[c]);
-    const int d = __reduce_add_sync(kFullMask, tsum[c]);
-    if (lane == 0 && c < C) {
-      if (a) atomicAdd(&s[3 * c], a);
-      if (b) atomicAdd(&s[3 * c + 1], b);
-      if (d) atomicAdd(&s[3 * c + 2], d);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * C; i += blockDim.x) {
-    const int v = s[i];
-    if (v) atomicAdd(&out[i], v);
   }
 }
 
@@ -170,12 +114,8 @@ cudaError_t launch(const void* pred, const void* truth, int64_t n, int C,
   if (grid > (int64_t)sms * kBlocksPerSM) grid = (int64_t)sms * kBlocksPerSM;
   const TP* p = static_cast<const TP*>(pred);
   const TT* t = static_cast<const TT*>(truth);
-  if (C <= kRegClasses) {
-    dice_counts_registers<TP, TT><<<(unsigned)grid, kThreads, 0, stream>>>(p, t, n, C, out);
-  } else {
-    dice_counts_shared<TP, TT><<<(unsigned)grid, kThreads, (size_t)3 * C * sizeof(int), stream>>>(
-        p, t, n, C, out);
-  }
+  dice_counts_shared<TP, TT><<<(unsigned)grid, kThreads, (size_t)3 * C * sizeof(int), stream>>>(
+      p, t, n, C, out);
   return cudaGetLastError();
 }
 

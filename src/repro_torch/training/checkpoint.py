@@ -9,11 +9,13 @@ atomically (temporary file + rename), and described by ``manifest.json``:
 ``step``, ``metadata``, ``index`` (key -> shard), ``spec`` (the tree's
 structure) and ``num_shards``. Restore rebuilds the exact tree, values and
 dtypes bit-equal, on the device asked for; a NamedTuple node is rebuilt
-as the port's class of that name in ``training/optimizer.py``.
+as the port's class of that name in ``training/optimizer.py``. The walk
+of a tree is ``repro_torch.tree``'s, leaf order and paths included.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import tempfile
@@ -22,7 +24,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 from repro_torch.training import optimizer as _opt
 
 _SEP = "/"
@@ -34,37 +36,25 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _flatten(tree) -> dict[str, np.ndarray]:
-    flat = {}
-
-    def visit(prefix, node):
-        if isinstance(node, dict):
-            for k in sorted(node):
-                visit(f"{prefix}{_SEP}{k}" if prefix else str(k), node[k])
-        elif isinstance(node, (list, tuple)):
-            for i, v in enumerate(node):
-                visit(f"{prefix}{_SEP}{i}" if prefix else str(i), v)
-        else:
-            flat[prefix] = _to_numpy(node)
-
-    visit("", tree)
-    return flat
+def _flatten(node) -> dict[str, np.ndarray]:
+    return {_SEP.join(map(str, path)): _to_numpy(leaf) for path, leaf in tree.leaves_with_paths(node)}
 
 
-def _treedef_spec(tree) -> Any:
+def _treedef_spec(node) -> Any:
     """JSON-able structure spec mirroring _flatten's traversal."""
-    if isinstance(tree, dict):
-        return {"__kind__": "dict", "keys": {k: _treedef_spec(v) for k, v in sorted(tree.items())}}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+    kids = tree.children(node)
+    if kids is None:
+        return {"__kind__": "leaf"}
+    if isinstance(node, dict):
+        return {"__kind__": "dict", "keys": {k: _treedef_spec(v) for k, v in kids}}
+    if tree.is_namedtuple(node):
         return {
             "__kind__": "namedtuple",
-            "name": type(tree).__name__,
-            "fields": [[f, _treedef_spec(getattr(tree, f))] for f in tree._fields],
+            "name": type(node).__name__,
+            "fields": [[f, _treedef_spec(v)] for f, (_, v) in zip(node._fields, kids)],
         }
-    if isinstance(tree, (list, tuple)):
-        return {"__kind__": "list" if isinstance(tree, list) else "tuple",
-                "items": [_treedef_spec(v) for v in tree]}
-    return {"__kind__": "leaf"}
+    return {"__kind__": "list" if isinstance(node, list) else "tuple",
+            "items": [_treedef_spec(v) for _, v in kids]}
 
 
 def save(path: str, tree, *, step: Optional[int] = None, metadata: Optional[dict] = None,
@@ -102,29 +92,22 @@ def save(path: str, tree, *, step: Optional[int] = None, metadata: Optional[dict
     os.replace(tmp, os.path.join(path, "manifest.json"))
 
 
-def _unflatten(spec, flat: dict[str, np.ndarray], device: torch.device, prefix: str = ""):
+def _skeleton(spec) -> Any:
+    """The tree ``spec`` describes, with None for every leaf."""
     kind = spec["__kind__"]
     if kind == "leaf":
-        return torch.tensor(flat[prefix], device=device)
+        return None
     if kind == "dict":
-        return {
-            k: _unflatten(s, flat, device, f"{prefix}{_SEP}{k}" if prefix else str(k))
-            for k, s in spec["keys"].items()
-        }
+        return {k: _skeleton(s) for k, s in spec["keys"].items()}
     if kind in ("list", "tuple"):
-        items = [
-            _unflatten(s, flat, device, f"{prefix}{_SEP}{i}" if prefix else str(i))
-            for i, s in enumerate(spec["items"])
-        ]
+        items = [_skeleton(s) for s in spec["items"]]
         return items if kind == "list" else tuple(items)
     if kind == "namedtuple":
-        vals = {
-            f: _unflatten(s, flat, device, f"{prefix}{_SEP}{i}" if prefix else str(i))
-            for i, (f, s) in enumerate(spec["fields"])
-        }
-        # A class the port does not define comes back as a dict of fields.
-        cls = getattr(_opt, spec["name"], None)
-        return cls(**vals) if cls else vals
+        fields = [f for f, _ in spec["fields"]]
+        # A class the port does not define comes back as a namedtuple of the
+        # same name and fields.
+        cls = getattr(_opt, spec["name"], None) or collections.namedtuple(spec["name"], fields)
+        return cls(**{f: _skeleton(s) for f, s in spec["fields"]})
     raise ValueError(f"bad spec kind {kind}")
 
 
@@ -139,7 +122,12 @@ def restore(path: str, device=None) -> tuple[Any, dict]:
         with np.load(os.path.join(path, f"shard_{i:05d}.npz")) as z:
             for k in z.files:
                 flat[k.replace("|", "/")] = z[k]
-    return _unflatten(manifest["spec"], flat, dev), manifest
+    skeleton = _skeleton(manifest["spec"])
+    values = [
+        torch.tensor(flat[_SEP.join(map(str, path))], device=dev)
+        for path, _ in tree.leaves_with_paths(skeleton)
+    ]
+    return tree.unflatten(skeleton, values), manifest
 
 
 def latest_step_dir(root: str) -> Optional[str]:

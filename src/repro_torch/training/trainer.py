@@ -37,7 +37,6 @@ class TrainConfig:
     steps: int = 300
     dice_weight: float = 1.0
     bn_momentum: float = 0.1
-    eval_every: int = 50
     eval_subjects: int = 4
     log_every: int = 25
     ckpt_dir: Optional[str] = None

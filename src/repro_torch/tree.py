@@ -8,17 +8,38 @@ lines up with ``jax.tree.leaves`` of the same tree.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Iterator, Optional
 
 
-def _is_namedtuple(node: Any) -> bool:
+def is_namedtuple(node: Any) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
 
 
-def _rebuild(node: Any, children) -> Any:
-    if _is_namedtuple(node):
-        return type(node)(*children)
-    return type(node)(children)
+def children(node: Any) -> Optional[list]:
+    """The ``(key, child)`` pairs of ``node`` in the reference's order (a
+    dict's sorted keys, a sequence's indices), or None for a leaf."""
+    if isinstance(node, dict):
+        return [(k, node[k]) for k in sorted(node)]
+    if isinstance(node, (list, tuple)):
+        return list(enumerate(node))
+    return None
+
+
+def leaves_with_paths(tree: Any, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
+    """``(path, leaf)`` for every leaf in the reference's order; ``path``
+    the keys from the root down."""
+    kids = children(tree)
+    if kids is None:
+        yield path, tree
+        return
+    for key, child in kids:
+        yield from leaves_with_paths(child, path + (key,))
+
+
+def _rebuild(node: Any, items) -> Any:
+    if is_namedtuple(node):
+        return type(node)(*items)
+    return type(node)(items)
 
 
 def map(fn: Callable, tree: Any, *rest: Any) -> Any:  # noqa: A001  (mirrors jax.tree.map)
@@ -33,11 +54,7 @@ def map(fn: Callable, tree: Any, *rest: Any) -> Any:  # noqa: A001  (mirrors jax
 
 def leaves(tree: Any) -> list:
     """The leaves of ``tree`` in the reference's order."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for item in tree for leaf in leaves(item)]
-    return [tree]
+    return [leaf for _, leaf in leaves_with_paths(tree)]
 
 
 def unflatten(like: Any, new_leaves) -> Any:
@@ -46,12 +63,13 @@ def unflatten(like: Any, new_leaves) -> Any:
     it = iter(new_leaves)
 
     def build(node):
+        kids = children(node)
+        if kids is None:
+            return next(it)
+        built = dict((k, build(child)) for k, child in kids)
         if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return _rebuild(node, [build(item) for item in node])
-        return next(it)
+        return _rebuild(node, [built[i] for i in range(len(node))])
 
     out = build(like)
     if next(it, None) is not None:

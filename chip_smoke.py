@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's segmentation and training main paths on one
-CUDA card.
+"""Drive the PyTorch port's segmentation, training and LM-serving main
+paths on one CUDA card.
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # tiny shapes, plain paths, CPU
@@ -9,8 +9,11 @@ The port has two kernel-backed forwards: ``cuda_fused`` (K1, the fused
 dilated conv, one launch per layer) and ``cuda_megakernel`` (K2, the
 depth-first segment kernel, one launch per segment of a plan); and a
 training path whose hard Dice metric and held-out scores go through K3
-(the per-class Dice count kernel, one launch per score). Phases, each
-printed on lines of its own:
+(the per-class Dice count kernel, one launch per score); and LM serving
+(LMEngine at TinyLlama-1.1B's full width), whose every attention layer of
+every decode step is one launch of K4 (decode attention). K5 (the
+27-view conv) computes K1's function and checks it. Phases, each printed
+on lines of its own:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds every kernel source of the port, all at once,
@@ -67,15 +70,40 @@ printed on lines of its own:
                 optimizer + BN fold and the Dice metric, its peak memory;
                 one more step under torch.profiler (device time by
                 kernel); one conv layer's weight gradient alone
-            7e  the kernels line: one JSON line describing every ported
-                kernel (K1, K2, K3)
-8. ok       the last line, {"ok": true, "device": {...}}
+8. LM       8a  K4 against its plain version on the card: the reference's
+                four kernel cases and its bf16 case, TinyLlama's served
+                shape (B 4, H 32, KV 4, hd 64, S 1024) at pos 0, 1, 511,
+                512, 1023 (fp32) and 255, 1023 (bf16); a sliding-window
+                ring cache past its window (K4 called with min(pos, S-1)),
+                and that attention_decode against the CPU's; fp32 within
+                2e-5 absolute, bf16 within 3e-2;
+            8b  K5 against the plain version (5e-5 relative) and bit-equal
+                to K1, d = 1..16, fused and not, 1->5 and 5->5 at
+                (2, 31, 33, 17) and 21->21; K5's path, its role as K1's
+                oracle: every layer of one gwm_light forward at 256^3
+                bit-equal, counts set to 0 just before and read just after;
+                K5's times beside K1's at phase 6's layer shapes;
+            8c  the main path: LMEngine(slots 4, max_seq 1024, prefill
+                chunk 64) at TinyLlama-1.1B full width, fp32, random
+                weights made on the card, 6 requests of 32-256 random
+                prompt tokens and 32 greedy tokens each; every launch count
+                set to 0 just before and read just after: K4 exactly 22 a
+                decode_step, the others never. Then the card's decode
+                against the CPU's (full width, 2 layers, a 32-token prompt,
+                16 greedy tokens: each step's logits within 1e-4 of the
+                largest, the tokens equal); forward against decode_step at
+                22 layers over 64 tokens within 1e-3; times: K4 at the
+                served shape (kernel, plain, SDPA: device time per call
+                with a cold L2; the bound), a decode step at 4 slots, one
+                step under torch.profiler
+9. kernels  one JSON line describing every ported kernel (K1-K5)
+10. ok      the last line, {"ok": true, "device": {...}}
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line. Without a CUDA device (and without --cpu-rehearsal) it exits 1.
---cpu-rehearsal runs phases 1, 4, 5, 7b and 7c at a tiny size on the CPU
-with the plain versions, to find wrong paths and shapes without a card; it
-never prints the ok line.
+--cpu-rehearsal runs phases 1, 4, 5, 7b, 7c and 8c (TinyLlama's smoke
+config) at a tiny size on the CPU with the plain versions, to find wrong
+paths and shapes without a card; it never prints the ok line.
 """
 
 from __future__ import annotations
@@ -98,15 +126,19 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch import synchronize, tree  # noqa: E402
 from repro_torch.core import conform, meshnet  # noqa: E402
 from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
 from repro_torch.data import mri  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as k4  # noqa: E402
 from repro_torch.kernels import dice as k3  # noqa: E402
 from repro_torch.kernels import dilated_conv3d as k1  # noqa: E402
 from repro_torch.kernels import megakernel as k2  # noqa: E402
-from repro_torch.serving.engine import SegmentationEngine  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.serving.engine import LMEngine, Request, SegmentationEngine  # noqa: E402
 from repro_torch.training import checkpoint, losses, optimizer, trainer  # noqa: E402
 
 KERNEL_REL_TOL = 5e-5
@@ -163,6 +195,29 @@ def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     events = []
     for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def cold_ms(fn, runs: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call of ``fn`` with a cold L2, as the
+    served path finds it: before each call a 256 MiB write evicts the
+    50 MB L2, and a spin kernel keeps the card busy while the host enqueues
+    the call, so the CUDA events around the call time its kernels and not
+    the host's time between their launches (most of a call that does a few
+    microseconds of work)."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(runs):
+        flush.zero_()
+        torch.cuda._sleep(4_000_000)  # about 2 ms at the H100's clock
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -459,9 +514,10 @@ def profile_request(engine, vol, executor, unprofiled_s: float) -> None:
         print(f"profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
 
 
-def profile_step(run_step, unprofiled_ms: float) -> None:
-    """Device time of one more train step by kernel, from a torch.profiler
-    trace, and the share of the step the card was busy."""
+def profile_step(run_step, unprofiled_ms: float, label: str = "train step") -> list:
+    """Device time of one more step by kernel, from a torch.profiler
+    trace, and the share of the step the card was busy. Returns the
+    trace's device rows (empty when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -473,12 +529,13 @@ def profile_step(run_step, unprofiled_ms: float) -> None:
     busy_ms = sum(e.self_device_time_total for e in cuda) / 1e3
     if busy_ms == 0:
         print("profile: the profiler saw no device time; busy share not measured")
-        return
-    print(f"profile (train step): device busy {busy_ms:.3f} ms of a profiled step of {wall * 1e3:.3f} ms "
+        return []
+    print(f"profile ({label}): device busy {busy_ms:.3f} ms of a profiled step of {wall * 1e3:.3f} ms "
           f"({busy_ms / (wall * 1e3):.1%}); {busy_ms / unprofiled_ms:.1%} of the unprofiled step's {unprofiled_ms:.3f} ms; "
           f"{sum(e.count for e in cuda)} device operations")
     for e in sorted(cuda, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"profile: {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    return cuda
 
 
 def conv_weight_grad_times(dev, size: int, gen: torch.Generator) -> None:
@@ -504,6 +561,15 @@ def conv_weight_grad_times(dev, size: int, gen: torch.Generator) -> None:
                     forward_and_weight_grad_ms=wgrad_ms)))
     finally:
         torch.backends.cudnn.benchmark = before
+
+
+def print_clocks() -> None:
+    """The card's clock, power draw and limit, and temperature after a timing run."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    print(f"after timing: clocks.sm, power.draw, power.limit, temperature: {smi.stdout.strip()}")
 
 
 def bound(ops_: float, bytes_: float, peak_flops: float, peak_bw: float) -> tuple[float, str]:
@@ -583,11 +649,7 @@ def phase_times(dev, card: str, size: int) -> tuple[list[dict], list[dict]]:
     for name, fn in (("torch", meshnet.apply), ("cuda_fused", ops.meshnet_apply),
                      ("cuda_megakernel", ops.meshnet_apply_megakernel)):
         print(f"times forward {name}: {time_ms(lambda: fn(params, xs, cfg)):.4f} ms (one gwm_light forward at {size}^3)")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    print(f"after timing: clocks.sm, power.draw, power.limit, temperature: {smi.stdout.strip()}")
+    print_clocks()
     return rows, seg_rows
 
 
@@ -799,18 +861,293 @@ def phase_train_times(dev, card: str, size: int, trained: dict) -> dict:
           f"peak device memory {peak / 2**30:.3f} GiB ({base / 2**20:.1f} MiB resident before)")
     profile_step(lambda: step(params, state, vol, lab, drop), step_ms)
     conv_weight_grad_times(dev, size, gen)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    print(f"after timing: clocks.sm, power.draw, power.limit, temperature: {smi.stdout.strip()}")
+    print_clocks()
     return k3_row
 
 
-def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err) -> dict:
-    """Per-forward numbers of K1 and K2: one gwm_light forward at 256^3,
-    9 launches of K1 or one launch of K2 per segment of the plan; K3's per
-    count of one 256^3 3-class pair."""
+
+# ----------------------------------------------------------- phase 8: LM ---
+
+LM_ARCH = "tinyllama-1.1b"
+LM_SLOTS, LM_MAX_SEQ, LM_CHUNK = 4, 1024, 64
+LM_REQUESTS, LM_PROMPT, LM_NEW = 6, (32, 256), 32
+K4_FP32_TOL = 2e-5  # tests/test_kernels.py:155, absolute
+K4_BF16_TOL = 3e-2  # tests/test_kernels.py:166-169, absolute
+LM_CPU_TOL = 1e-4  # card against CPU: a step's logits, relative to the largest
+LM_DECODE_VS_FORWARD = 1e-3  # tests/test_models.py:84, relative to the largest logit
+K4_TIMED_POS = 255  # K4's timed call: 256 valid slots, within the served positions
+
+
+def k4_inputs(gen, B, H, KV, hd, S, dtype, device):
+    return [torch.randn(shape, generator=gen).to(device, dtype)
+            for shape in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def k4_work(B, H, KV, hd, n_valid, elem_bytes) -> tuple[int, int]:
+    """(operations, bytes) of one decode attention: a multiply-add per
+    (head, valid slot, d) for the scores and for PV, and the softmax's few
+    operations per score; each valid K/V slot read once, q read and out
+    written once."""
+    return B * H * n_valid * (4 * hd + 5), elem_bytes * (2 * B * n_valid * KV * hd + 2 * B * H * hd)
+
+
+def phase_parity_k4(dev) -> dict:
+    print("== phase 8a: K4 parity against the plain version (card)")
+    gen = torch.Generator().manual_seed(SEED + 81)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (B, H, KV, hd, S, pos, dtype): the reference's kernel cases, its bf16 case
+        (2, 8, 2, 32, 100, 57, f32), (1, 4, 4, 16, 64, 63, f32), (3, 16, 8, 64, 200, 10, f32),
+        (1, 8, 1, 32, 96, 95, f32), (2, 8, 4, 32, 80, 40, bf16),
+    ]
+    cases += [(4, 32, 4, 64, 1024, pos, f32) for pos in (0, 1, 511, 512, 1023)]  # TinyLlama, served
+    cases += [(4, 32, 4, 64, 1024, pos, bf16) for pos in (K4_TIMED_POS, 1023)]
+    worst = {f32: 0.0, bf16: 0.0}
+    for B, H, KV, hd, S, pos, dtype in cases:
+        q, k, v = k4_inputs(gen, B, H, KV, hd, S, dtype, dev)
+        got = k4.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.decode_attention(q, k, v, pos).float()).abs().max())
+        tol = K4_FP32_TOL if dtype == f32 else K4_BF16_TOL
+        print(f"K4 B={B} H={H} KV={KV} hd={hd} S={S} pos={pos} {str(dtype)[6:]}: max_abs_err {err:.3e} (gate {tol})")
+        check(err <= tol, f"K4 abs err {err} > {tol} at B={B} H={H} KV={KV} hd={hd} S={S} pos={pos} {dtype}")
+        worst[dtype] = max(worst[dtype], err)
+
+    # A sliding-window ring cache (S = window = 1024) at pos 1500, past the
+    # window: attention_decode writes slot 1500 % S and calls K4 with
+    # min(pos, S - 1). Held against the plain version with that mask, and
+    # the layer against the same layer on the CPU.
+    cfg = lm_configs.get(LM_ARCH, dtype=f32, sliding_window=LM_MAX_SEQ)
+    p = lm_layers.init_attention(gen, cfg, device="cpu")
+    x = torch.randn((4, 1, cfg.d_model), generator=gen)
+    ck, cv = (torch.randn((4, LM_MAX_SEQ, cfg.num_kv_heads, cfg.resolved_head_dim), generator=gen) for _ in "kv")
+    pos = 1500
+    expect, cpu_k, cpu_v = lm_layers.attention_decode(p, x, cfg, ck.clone(), cv.clone(), pos)
+    card_k, card_v = ck.to(dev), cv.to(dev)
+    before = k4.launches
+    got, _, _ = lm_layers.attention_decode(tree.map(lambda t: t.to(dev), p), x.to(dev), cfg, card_k, card_v, pos)
+    torch.cuda.synchronize()
+    check(k4.launches == before + 1, "the sliding-window attention_decode launched K4 once")
+    layer_rel = rel_err(got.cpu(), expect)[1]
+    q = lm_layers._project_qkv(tree.map(lambda t: t.to(dev), p), x.to(dev), cfg,
+                               torch.full((4, 1), pos, device=dev))[0]
+    ring = min(pos, LM_MAX_SEQ - 1)
+    err = float((k4.decode_attention(q, card_k, card_v, ring) - ref.decode_attention(q, card_k, card_v, ring)).abs().max())
+    print(f"K4 sliding window S={LM_MAX_SEQ} pos={pos} -> min(pos, S-1)={ring}: max_abs_err {err:.3e}; "
+          f"attention_decode card vs cpu rel {layer_rel:.3e}; ring slot written equal: "
+          f"{bool(torch.equal(card_k[:, pos % LM_MAX_SEQ].cpu(), cpu_k[:, pos % LM_MAX_SEQ]))}")
+    check(err <= K4_FP32_TOL, f"K4 sliding-window abs err {err} > {K4_FP32_TOL}")
+    check(layer_rel <= LM_CPU_TOL, f"sliding-window attention_decode card vs cpu rel {layer_rel} > {LM_CPU_TOL}")
+    worst[f32] = max(worst[f32], err)
+    return {"fp32": worst[f32], "bf16": worst[bf16]}
+
+
+def phase_views(dev, size: int, k1_rows) -> dict:
+    print("== phase 8b: K5 (the 27-view conv) against the plain version and bit for bit against K1 (card)")
+    gen = torch.Generator().manual_seed(SEED + 82)
+    cases = [(s, cin, cout, d, affine)
+             for s, cin, cout in (((2, 31, 33, 17), 1, 5), ((2, 31, 33, 17), 5, 5), ((1, 40, 36, 44), 21, 21))
+             for d in (1, 2, 4, 8, 16) for affine in (False, True)]
+    worst_abs = worst_rel = 0.0
+    for shape, cin, cout, d, affine in cases:
+        x, w, b, sc, o = conv_inputs(gen, shape, cin, cout, dev)
+        kw = dict(dilation=d, scale=sc, offset=o, fuse_affine=affine)
+        views = k1.dilated_conv3d(x, w, b, variant="views", **kw)
+        halo = k1.dilated_conv3d(x, w, b, **kw)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(views, ref.dilated_conv3d(x, w, b, **kw))
+        equal = bool(torch.equal(views, halo))
+        print(f"K5 {shape} {cin}->{cout} d={d} affine={affine}: max_abs_err {abs_err:.3e} rel {rel:.3e}; bit-equal to K1: {equal}")
+        check(rel <= KERNEL_REL_TOL, f"K5 rel err {rel} > {KERNEL_REL_TOL} at {shape} {cin}->{cout} d={d}")
+        check(equal, f"K5 differs from K1 at {shape} {cin}->{cout} d={d} affine={affine}")
+        worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
+
+    # K5's path, its role in the reference: K1's oracle, here over one
+    # served gwm_light forward at size^3, layer by layer. Counts 0 just
+    # before, read just after.
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
+    vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
+    act = conform.conform(vol, (size,) * 3)[None, ..., None]
+    synchronize(dev)
+    k1.launches = k1.views_launches = 0  # K5's path starts
+    for i, d in enumerate(cfg.dilations):
+        scale, offset = ops.fold_batchnorm(params["layers"][i])
+        kw = dict(dilation=d, scale=scale, offset=offset, fuse_affine=True)
+        w, b = params["layers"][i]["w"], params["layers"][i]["b"]
+        nxt = k1.dilated_conv3d(act, w, b, **kw)
+        check(bool(torch.equal(k1.dilated_conv3d(act, w, b, variant="views", **kw), nxt)),
+              f"K5 differs from K1 at layer {i} of the served forward")
+        act = nxt
+    synchronize(dev)
+    counts = {"K1": k1.launches, "K5": k1.views_launches}  # K5's path ends
+    print(f"K5 as K1's oracle over one gwm_light forward at {size}^3: every layer bit-equal; launches {counts}")
+    check(counts == {"K1": len(cfg.dilations), "K5": len(cfg.dilations)}, f"oracle path launched {counts}")
+    del act, nxt, vol
+
+    rows = []
+    for row in k1_rows:  # K1's timed layers (phase 6): the same inputs' shapes for K5
+        x, w, b, sc, o = conv_inputs(gen, (1, size, size, size), row["cin"], row["cout"], dev)
+        kw = dict(dilation=row["dilation"], scale=sc, offset=o, fuse_affine=True)
+        views_ms = time_ms(lambda: k1.dilated_conv3d(x, w, b, variant="views", **kw))
+        halo_ms = time_ms(lambda: k1.dilated_conv3d(x, w, b, **kw))
+        r = dict(dilation=row["dilation"], cin=row["cin"], cout=row["cout"], launches_per_forward=row["launches_per_forward"],
+                 views_ms=views_ms, halo_ms=halo_ms, bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+        print("times K5 " + json.dumps(r))
+        rows.append(r)
+        del x
+    return {"err": (worst_abs, worst_rel), "launches": counts["K5"], "rows": rows}
+
+
+def lm_requests(gen, cfg, n, prompt_range, new):
+    lens = torch.randint(prompt_range[0], prompt_range[1] + 1, (n,), generator=gen).tolist()
+    return [Request(prompt=torch.randint(0, cfg.vocab_size, (m,), generator=gen).tolist(), max_new_tokens=new, id=i)
+            for i, m in enumerate(lens)]
+
+
+def lm_cpu_agreement(dev, cfg, prompt_len: int, new: int) -> None:
+    """The card's decode against the CPU's for one request, the pattern of
+    phase 7b: the same params on both, a prompt of ``prompt_len`` tokens
+    and ``new`` greedy tokens, as the engine serves it (the prompt's last
+    token starts the greedy steps); every step's logits, and the tokens."""
+    gen = torch.Generator().manual_seed(SEED + 83)
+    params = lm_model.init(cfg, generator=gen, device="cpu")
+    runs = [(params, "cpu"), (tree.map(lambda t: t.to(dev), params), dev)]
+    caches = [lm_model.init_cache(cfg, 1, prompt_len + new, device=d) for _, d in runs]
+    prompt = torch.randint(0, cfg.vocab_size, (prompt_len,), generator=gen).tolist()
+    fed, worst, greedy = prompt[0], 0.0, []
+    for pos in range(prompt_len - 1 + new):
+        cpu, card = (lm_model.decode_step(p, torch.tensor([[fed]], device=d), c, pos, cfg)[0][0, -1].cpu()
+                     for (p, d), c in zip(runs, caches))
+        worst = max(worst, rel_err(card, cpu)[1])
+        if pos + 1 < prompt_len:
+            fed = prompt[pos + 1]
+            continue
+        fed = int(torch.argmax(cpu))
+        check(fed == int(torch.argmax(card)), f"greedy token at position {pos + 1}: cpu {fed}, card {int(torch.argmax(card))}")
+        greedy.append(fed)
+    print(f"LM card vs cpu ({cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}): {prompt_len}-token prompt, "
+          f"{len(greedy)} greedy tokens equal; worst step logits rel err {worst:.3e} (gate {LM_CPU_TOL})")
+    check(worst <= LM_CPU_TOL, f"LM card vs cpu rel err {worst} > {LM_CPU_TOL}")
+
+
+def profile_decode_step(params, cfg, cache, pos: int, tokens, unprofiled_ms: float) -> None:
+    """One decode step under torch.profiler (``profile_step``), its device
+    time split into K4, the matrix products and the rest."""
+    cuda = profile_step(lambda: lm_model.decode_step(params, tokens, cache, pos, cfg), unprofiled_ms,
+                        f"decode step, batch {tokens.shape[0]}, pos {pos}")
+    if not cuda:
+        return
+    busy = sum(e.self_device_time_total for e in cuda) / 1e3
+    k4_ms = sum(e.self_device_time_total for e in cuda if "decode_attn" in e.key or "combine_kernel" in e.key) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in cuda
+                  if any(w in e.key.lower() for w in ("gemm", "gemv", "cutlass", "xmma", "matmul", "dot_kernel"))) / 1e3
+    print("profile decode step " + json.dumps(dict(
+        device_busy_ms=busy, k4_ms=k4_ms, gemm_ms=gemm_ms, other_device_ms=busy - k4_ms - gemm_ms,
+        unprofiled_step_ms=unprofiled_ms, host_share_of_unprofiled_step=1 - busy / unprofiled_ms)))
+
+
+def phase_lm(dev, card: str, rehearsal: bool) -> dict:
+    cfg = lm_configs.get_smoke(LM_ARCH) if rehearsal else lm_configs.get(LM_ARCH)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)  # as launch/serve.py's serve_lm
+    slots, max_seq, chunk = (4, 64, 8) if rehearsal else (LM_SLOTS, LM_MAX_SEQ, LM_CHUNK)
+    prompt_range, new = ((4, 12), 4) if rehearsal else (LM_PROMPT, LM_NEW)
+    print(f"== phase 8c: LMEngine, {cfg.name} at {'smoke' if rehearsal else 'full'} width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+          f"fp32, {LM_REQUESTS} requests, {slots} slots: main path of K4")
+    t0 = time.perf_counter()
+    gen_dev = torch.Generator(device=dev).manual_seed(SEED + 84)
+    params = lm_model.init(cfg, generator=gen_dev, device=dev)
+    synchronize(dev)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"params: {n_params} ({n_params * 4 / 2**30:.3f} GiB fp32) made on {dev.type} in {time.perf_counter() - t0:.2f} s")
+    reqs = lm_requests(torch.Generator().manual_seed(SEED + 85), cfg, LM_REQUESTS, prompt_range, new)
+    engine = LMEngine(params, cfg, slots=slots, max_seq=max_seq, prefill_chunk=chunk, device=dev)
+    synchronize(dev)
+    k1.launches = k1.views_launches = k2.launches = k3.launches = k4.launches = 0  # main path starts
+    t0 = time.perf_counter()
+    outs = engine.run(reqs)
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = {"K1": k1.launches, "K2": k2.launches, "K3": k3.launches, "K4": k4.launches, "K5": k1.views_launches}
+    # main path ends
+    tokens = sum(len(c.tokens) for c in outs)
+    for c, r in zip(outs, reqs):
+        print(f"LM request {c.id}: prompt {len(r.prompt)} tokens, {len(c.tokens)} generated; prefill {c.prefill_s:.4f} s, "
+              f"decode {c.decode_s:.4f} s")
+        check(len(c.tokens) == new and all(0 <= t < cfg.vocab_size for t in c.tokens), f"request {c.id} tokens")
+    check([c.id for c in outs] == list(range(LM_REQUESTS)), "every request completed")
+    prefill_steps = sum(len(r.prompt) - 1 for r in reqs)
+    print("LM serve " + json.dumps(dict(
+        requests=LM_REQUESTS, generated_tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        prefill_s_per_request=statistics.mean(c.prefill_s for c in outs), decode_steps=engine.steps,
+        prefill_steps=prefill_steps, lockstep_steps=engine.steps - prefill_steps, launches=counts)))
+    expected = ({"K1": 0, "K2": 0, "K3": 0, "K4": engine.steps * cfg.num_layers, "K5": 0}
+                if dev.type == "cuda" else dict.fromkeys(counts, 0))
+    check(counts == expected, f"LM path launched {counts}, expected {expected}")
+
+    out = {"counts": counts}
+    lm_cpu_agreement(dev, dataclasses.replace(cfg, num_layers=2), *((8, 4) if rehearsal else (32, 16)))
+
+    # forward against decode_step at full depth: the reference's invariant
+    T = 16 if rehearsal else 64
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=torch.Generator().manual_seed(SEED + 86)).to(dev)
+    full, _ = lm_model.forward(params, {"tokens": toks}, cfg)
+    cache = lm_model.init_cache(cfg, 1, T, device=dev)
+    steps = torch.cat([lm_model.decode_step(params, toks[:, t : t + 1], cache, t, cfg)[0] for t in range(T)], 1)
+    fwd_rel = rel_err(steps, full)[1]
+    print(f"LM forward vs decode_step over a {T}-token prompt, {cfg.num_layers} layers: rel {fwd_rel:.3e} "
+          f"(gate {LM_DECODE_VS_FORWARD})")
+    check(bool(torch.isfinite(full).all()) and fwd_rel <= LM_DECODE_VS_FORWARD, f"forward vs decode rel {fwd_rel}")
+    del full, steps, cache
+    if rehearsal:
+        return out
+
+    # Times at the served shape: K4 per call (device time with a cold L2;
+    # and the CUDA-event time of back-to-back calls, the host's time
+    # included), a decode step at 4 slots.
+    _, peak_flops, peak_bw = peaks_for(card)
+    gen = torch.Generator().manual_seed(SEED + 87)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = k4_inputs(gen, LM_SLOTS, H, KV, hd, LM_MAX_SEQ, torch.float32, dev)
+    n_valid = K4_TIMED_POS + 1
+    mask = (torch.arange(LM_MAX_SEQ, device=dev) < n_valid)[None, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, hd) views
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+    lib_err = float((lib - ref.decode_attention(q, k, v, K4_TIMED_POS)).abs().max())
+    kernel = lambda: k4.decode_attention(q, k, v, K4_TIMED_POS)  # noqa: E731
+    plain = lambda: ref.decode_attention(q, k, v, K4_TIMED_POS)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    kernel_ms, plain_ms, library_ms = cold_ms(kernel), cold_ms(plain), cold_ms(library)
+    call_ms = {name: time_ms(fn) for name, fn in (("kernel", kernel), ("plain", plain), ("library", library))}
+    full_ms = cold_ms(lambda: k4.decode_attention(q, k, v, LM_MAX_SEQ - 1))
+    ops_, bytes_ = k4_work(LM_SLOTS, H, KV, hd, n_valid, 4)
+    bound_ms, bound_by = bound(ops_, bytes_, peak_flops, peak_bw)
+    full_bound = bound(*k4_work(LM_SLOTS, H, KV, hd, LM_MAX_SEQ, 4), peak_flops, peak_bw)[0]
+    nsplit, split_len = k4.split(n_valid, LM_SLOTS * KV)
+    k4_row = dict(B=LM_SLOTS, H=H, KV=KV, hd=hd, S=LM_MAX_SEQ, pos=K4_TIMED_POS, chunks=nsplit, chunk=split_len,
+                  kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                  ops=ops_, bytes=bytes_, library_abs_err=lib_err, full_cache_kernel_ms=full_ms,
+                  full_cache_bound_ms=full_bound, call_ms_cuda_events=call_ms)
+    print("times K4 " + json.dumps(k4_row))
+
+    tokens4 = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1), generator=gen).to(dev)
+    pos = K4_TIMED_POS
+    step_ms = time_ms(lambda: lm_model.decode_step(params, tokens4, engine.cache, pos, cfg), runs=20)
+    weight_bytes = n_params * 4
+    print("times decode step " + json.dumps(dict(
+        batch=LM_SLOTS, pos=pos, step_ms=step_ms, weight_bytes=weight_bytes,
+        weight_read_bound_ms=weight_bytes / peak_bw * 1e3, k4_launches_per_step=cfg.num_layers)))
+    profile_decode_step(params, cfg, engine.cache, pos, tokens4, step_ms)
+    print_clocks()
+    out["k4_row"] = k4_row
+    return out
+
+
+def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err, k4_err, k4_row, views) -> dict:
+    """Per-forward numbers of K1, K2 and K5: one gwm_light forward at 256^3,
+    9 launches of K1 or K5 or one launch of K2 per segment of the plan; K3's
+    per count of one 256^3 3-class pair; K4's per launch at the served
+    shape."""
 
     def totals(rs, per=lambda r: 1):
         t = {k: sum(r[k] * per(r) for r in rs) for k in ("kernel_ms", "plain_ms")}
@@ -872,6 +1209,47 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err)
                 "per": "one 256^3 3-class count (int64 pred, int32 truth); launches from the train path "
                        f"({TRAIN_STEPS} steps + {EVAL_SUBJECTS} held-out subjects)",
             },
+            {
+                "name": "decode_attention",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                "replaces": "src/repro/kernels/decode_attention.py:33",
+                "tpu_kernel": "src/repro/kernels/decode_attention.py::_decode_attn_kernel",
+                "launches": launches["lm"]["K4"],
+                "max_abs_err": k4_err["fp32"],
+                "max_abs_err_bf16": k4_err["bf16"],
+                "ms": k4_row["kernel_ms"],
+                "plain_ms": k4_row["plain_ms"],
+                "bound_ms": k4_row["bound_ms"],
+                "bound_by": k4_row["bound_by"],
+                "library_ms": k4_row["library_ms"],
+                "library": "F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask",
+                "call_ms": k4_row["call_ms_cuda_events"]["kernel"],
+                "per": f"one call at the served shape (B {k4_row['B']}, H {k4_row['H']}, KV {k4_row['KV']}, "
+                       f"hd {k4_row['hd']}, S {k4_row['S']}, pos {k4_row['pos']}, fp32); ms, plain_ms and library_ms "
+                       "are device times per call with a cold L2 (chip_smoke.cold_ms), call_ms the CUDA-event "
+                       "median of back-to-back calls, the host's time included; launches from "
+                       f"LMEngine serving {LM_REQUESTS} requests at {LM_ARCH} full width (22 a decode step)",
+            },
+            {
+                "name": "dilated_conv3d_views",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/dilated_conv3d_views.cu",
+                "replaces": "src/repro/kernels/dilated_conv3d.py:114",
+                "tpu_kernel": "src/repro/kernels/dilated_conv3d.py::_views_kernel",
+                "launches": views["launches"],
+                "max_abs_err": views["err"][0],
+                "max_rel_err": views["err"][1],
+                "ms": sum(r["views_ms"] * r["launches_per_forward"] for r in views["rows"]),
+                "k1_ms_same_call": sum(r["halo_ms"] * r["launches_per_forward"] for r in views["rows"]),
+                "plain_ms": t1["plain_ms"],
+                "bound_ms": b1,
+                "bound_by": by1,
+                "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in rows),
+                "per": "one gwm_light forward at 256^3 (9 launches; K1's function, so K1's plain, bound and "
+                       "F.conv3d times); launches from K5's path as K1's oracle over one served forward, "
+                       "bit-equal to K1 at every layer",
+            },
         ]
     }
 
@@ -900,6 +1278,7 @@ def main(argv=None) -> int:
     if rehearsal:
         phase_train_step_parity(dev, 16)
         phase_train(dev, size)
+        phase_lm(dev, card, rehearsal)
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
     rows, seg_rows = phase_times(dev, card, size)
@@ -909,7 +1288,13 @@ def main(argv=None) -> int:
     launches["train"] = trained["counts"]
     check(launches["train"]["K3"] > 0, "K3 was not launched on its main path")
     k3_row = phase_train_times(dev, card, size, trained)
-    print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err)))
+    k4_err = phase_parity_k4(dev)
+    views = phase_views(dev, size, rows)
+    lm = phase_lm(dev, card, rehearsal)
+    launches["lm"] = lm["counts"]
+    check(launches["lm"]["K4"] > 0, "K4 was not launched on its main path")
+    check(views["launches"] > 0, "K5 was not launched on its path")
+    print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err, k4_err, lm["k4_row"], views)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

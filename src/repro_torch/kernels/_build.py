@@ -25,6 +25,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: shared memory one block can use on the target (sm_90a, bytes).
+SMEM_LIMIT = 232_448
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 

@@ -1,11 +1,16 @@
-"""Wrapper of K1, the fused 3x3x3 dilated conv (+ folded BN + ReLU) kernel.
+"""Wrappers of K1 and K5, the fused 3x3x3 dilated conv (+ folded BN + ReLU).
 
-Counterpart of ``repro/kernels/dilated_conv3d.py::dilated_conv3d``. The
-kernel is CUDA C++ for sm_90a (``csrc/dilated_conv3d.cu``, whose header
-says how it is built and what bounds it), loaded through ``_build``.
+Counterpart of ``repro/kernels/dilated_conv3d.py::dilated_conv3d``, whose
+``variant`` picks the schedule: ``"halo"`` (K1, ``csrc/dilated_conv3d.cu``,
+one thread per output voxel reading its taps from device memory) or
+``"views"`` (K5, ``csrc/dilated_conv3d_views.cu``, the 27-shifted-tile
+schedule, bit-equal to K1 and its oracle on the card). Both are CUDA C++
+for sm_90a (each source's header says what bounds it), loaded through
+``_build``.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
-version (``kernels/ref.py``). ``launches`` counts kernel launches and
+version (``kernels/ref.py``), which computes the same function for both.
+``launches`` (K1) and ``views_launches`` (K5) count kernel launches and
 nothing else, so a run can show that its path went through the kernel.
 """
 
@@ -18,33 +23,44 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-#: shared memory one Hopper block can use (bytes).
-SMEM_LIMIT = 232_448
+SMEM_LIMIT = _build.SMEM_LIMIT
 
-#: kernel launches since the counter was last reset (CPU calls don't count).
+#: kernel launches since the counter was last reset (CPU calls don't count):
+#: K1's, and K5's.
 launches = 0
+views_launches = 0
 
-_LIB = None
+#: side of K5's cubic output tile (one thread per voxel).
+VIEWS_TILE = 8
+
+#: variant -> (source name, C entry point prefix)
+_SOURCES = {"halo": ("dilated_conv3d", "repro_dilated_conv3d"),
+            "views": ("dilated_conv3d_views", "repro_dilated_conv3d_views")}
+_LIBS: dict = {}
 
 
-def smem_bytes(cin: int, cout: int) -> int:
-    """Shared memory one block stages: weights, bias, scale and offset."""
-    return (27 * cin * cout + 3 * cout) * 4
+def smem_bytes(cin: int, cout: int, variant: str = "halo") -> int:
+    """Shared memory one block stages: weights, bias, scale and offset;
+    for K5 also one (8, 8, 8, Cin) input tile."""
+    tile = VIEWS_TILE**3 * cin if variant == "views" else 0
+    return (27 * cin * cout + 3 * cout + tile) * 4
 
 
-def _kernel():
-    global _LIB
-    if _LIB is None:
-        lib = _build.load("dilated_conv3d")
-        fn = lib.repro_dilated_conv3d_f32
+def _kernel(variant: str):
+    """(library, launch function, supports function) of a variant's kernel."""
+    if variant not in _LIBS:
+        name, prefix = _SOURCES[variant]
+        lib = _build.load(name)
+        fn = getattr(lib, f"{prefix}_f32")
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.repro_dilated_conv3d_supports.argtypes = [ctypes.c_int]
-        lib.repro_dilated_conv3d_supports.restype = ctypes.c_int
+        supports = getattr(lib, f"{prefix}_supports")
+        supports.argtypes = [ctypes.c_int]
+        supports.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[variant] = (lib, fn, supports)
+    return _LIBS[variant]
 
 
 def _check_shapes(x, w, b, scale, offset, dilation):
@@ -71,15 +87,19 @@ def dilated_conv3d(
     scale: Optional[torch.Tensor] = None,
     offset: Optional[torch.Tensor] = None,
     fuse_affine: bool = False,
+    variant: str = "halo",
 ) -> torch.Tensor:
     """'Same' 3x3x3 dilated conv: x (B, D, H, W, Cin), w (3, 3, 3, Cin,
     Cout), b (Cout,) -> (B, D, H, W, Cout). With ``fuse_affine``:
     ``relu((conv + b) * scale + offset)``, scale 1 and offset 0 when absent.
+    ``variant``: "halo" (K1) or "views" (K5), one function.
 
     On CUDA every tensor must be contiguous fp32 on x's device, Cout one of
-    the kernel's instantiated widths (5, 10, 18, 21), and the staged
-    weights within one block's shared memory."""
-    global launches
+    the kernels' instantiated widths (5, 10, 18, 21), and what a block
+    stages within its shared memory."""
+    global launches, views_launches
+    if variant not in _SOURCES:
+        raise ValueError(f"variant must be 'halo' or 'views', got {variant!r}")
     _check_shapes(x, w, b, scale, offset, dilation)
     if x.device.type == "cpu":
         return ref.dilated_conv3d(
@@ -99,17 +119,17 @@ def dilated_conv3d(
             raise ValueError(f"operands on {t.device} and {x.device}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous tensors only")
-    lib = _kernel()
-    if not lib.repro_dilated_conv3d_supports(cout):
+    lib, launch, supports = _kernel(variant)
+    if not supports(cout):
         raise ValueError(f"the CUDA kernel is not instantiated for Cout={cout}")
-    if smem_bytes(cin, cout) > SMEM_LIMIT:
+    if smem_bytes(cin, cout, variant) > SMEM_LIMIT:
         raise ValueError(
-            f"Cin={cin} x Cout={cout} weights need {smem_bytes(cin, cout)} bytes of "
+            f"Cin={cin} x Cout={cout} needs {smem_bytes(cin, cout, variant)} bytes of "
             f"shared memory, over the {SMEM_LIMIT} one block can use"
         )
     B, D, H, W, _ = x.shape
     out = torch.empty((B, D, H, W, cout), dtype=torch.float32, device=x.device)
-    err = lib.repro_dilated_conv3d_f32(
+    err = launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(),
         scale.data_ptr() if fuse_affine else None,
         offset.data_ptr() if fuse_affine else None,
@@ -118,7 +138,10 @@ def dilated_conv3d(
     )
     if err != 0:
         raise RuntimeError(
-            f"dilated_conv3d kernel launch failed: {lib.repro_cuda_error_string(err).decode()}"
+            f"dilated_conv3d ({variant}) kernel launch failed: {lib.repro_cuda_error_string(err).decode()}"
         )
-    launches += 1
+    if variant == "views":
+        views_launches += 1
+    else:
+        launches += 1
     return out

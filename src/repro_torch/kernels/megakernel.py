@@ -42,8 +42,8 @@ import torch
 
 from repro_torch.kernels import _build, quantize, ref
 
-#: shared memory one Hopper block can use (bytes): the planner's default budget.
-SMEM_BUDGET = 232_448
+#: the planner's default budget: all the shared memory one block can use.
+SMEM_BUDGET = _build.SMEM_LIMIT
 
 #: per-axis tile candidates. Sizes below 8 and off the multiples of 8 let a
 #: segment whose hidden activations are large still fit one block. They

@@ -3,12 +3,13 @@
 Each is the CPU path of its kernel's wrapper and, on the card, the version
 ``chip_smoke.py`` holds the kernel against. They repeat the kernel's
 arithmetic in plain tensor code and are no yardstick of speed:
-``dilated_conv3d`` for K1, ``megakernel_segment`` for K2, ``dice_counts``
-for K3.
+``dilated_conv3d`` for K1 and K5, ``megakernel_segment`` for K2,
+``dice_counts`` for K3, ``decode_attention`` for K4.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -99,3 +100,20 @@ def dice_counts(pred: torch.Tensor, truth: torch.Tensor, num_classes: int) -> to
         y = truth == c
         rows.append(torch.stack([(x & y).sum(), x.sum(), y.sum()]))
     return torch.stack(rows).to(torch.int32)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int) -> torch.Tensor:
+    """Single-token GQA decode attention over a KV cache (counterpart of
+    ``repro/kernels/ref.py::decode_attention``): q (B, 1, H, hd), k/v
+    (B, S, KV, hd), attends to slots [0, pos]; the KV heads repeated to H,
+    scores in fp32 over sqrt(hd), slots after ``pos`` masked with -1e30,
+    softmax, the PV product in fp32; returns (B, 1, H, hd) in q's dtype."""
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    kk = torch.repeat_interleave(k, H // KV, dim=2).float()
+    vv = torch.repeat_interleave(v, H // KV, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) / math.sqrt(hd)
+    valid = torch.arange(k.shape[1], device=k.device) <= pos
+    s = s.masked_fill(~valid[None, None, None], -1e30)
+    p = torch.softmax(s, -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)

@@ -1,0 +1,1 @@
+"""launch — command-line entry points (``python -m repro_torch.launch.serve``)."""

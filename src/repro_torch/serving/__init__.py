@@ -1,1 +1,1 @@
-"""serving — the segmentation engine."""
+"""serving — the segmentation engine and the LM engine."""

@@ -1,23 +1,196 @@
-"""Segmentation serving engine — counterpart of ``SegmentationEngine`` in
-``repro/serving/engine.py``.
+"""Serving engines — counterpart of ``repro/serving/engine.py``.
 
-Picks full-volume streaming vs the sub-volume failsafe per request from
-the memory budget (one H100's device memory by default), runs the
-pipeline on the engine's device, and logs each request's telemetry.
-The queued entry points (``submit_async``, ``drain``, ``submit_many``)
-come with the scheduler slice of the port.
+LMEngine — continuous-batching text generation for a ModelConfig of the
+dense family: chunked prefill through ``decode_step``, slots at one
+position stepped in lock-step, greedy or temperature sampling, per-slot
+EOS / ``max_new_tokens`` / ``max_seq`` retirement and slot reuse. Every
+attention layer of every step is one launch of K4 on the card.
+
+SegmentationEngine — picks full-volume streaming vs the sub-volume
+failsafe per request from the memory budget (one H100's device memory by
+default), runs the pipeline on the engine's device, and logs each
+request's telemetry. The queued entry points (``submit_async``,
+``drain``, ``submit_many``) come with the scheduler slice of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
-from repro_torch import resolve_device
+import numpy as np
+import torch
+
+from repro_torch import resolve_device, synchronize, tree
 from repro_torch.core import pipeline as pl
 from repro_torch.kernels import quantize
+from repro_torch.models import model as MD
+from repro_torch.models.config import ModelConfig
 from repro_torch.telemetry.budget import BudgetExceeded, MemoryBudget
 from repro_torch.telemetry.record import TelemetryLog
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: list[int]
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    id: int = 0
+
+
+@dataclasses.dataclass
+class Completion:
+    id: int
+    tokens: list[int]
+    prefill_s: float
+    decode_s: float
+
+
+class LMEngine:
+    """Static-slot continuous batching engine on one device
+    (``device=None``: the CUDA card, which must exist; ``params`` already
+    on it).
+
+    ``slots`` concurrent sequences share one cache; finished slots are
+    refilled from the queue. A request's prompt (all but its last token)
+    is prefilled token by token through ``decode_step`` on the slot's lane
+    of the cache, its token ids sent to the device ``prefill_chunk`` at a
+    time. Decode advances the live slots that share a position with one
+    ``decode_step`` over every slot; the step writes its K/V column at
+    that position for every lane, and the lanes of the slots not stepped
+    get their column back (the reference's masked merge, on the one column
+    a step writes). ``steps`` counts ``decode_step`` calls, prefill's
+    included. Temperature sampling draws from ``generator`` (a CPU
+    ``torch.Generator``; seed 0 by default).
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg: ModelConfig,
+        *,
+        slots: int = 4,
+        max_seq: int = 512,
+        prefill_chunk: int = 64,
+        eos_id: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        MD.check_supported(cfg)
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.slots = slots
+        self.max_seq = max_seq
+        self.prefill_chunk = prefill_chunk
+        self.eos_id = eos_id
+        self.generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.cache = MD.init_cache(cfg, slots, max_seq, device=self.device)
+        self.pos = np.zeros((slots,), np.int64)  # per-slot next position
+        self.live = np.zeros((slots,), bool)
+        self.steps = 0
+
+    def _step(self, tokens: torch.Tensor, cache, pos: int) -> torch.Tensor:
+        """One ``decode_step`` -> the last position's logits (B, V)."""
+        self.steps += 1
+        logits, _ = MD.decode_step(self.params, tokens, cache, pos, self.cfg)
+        return logits[:, -1]
+
+    # --- prefill ------------------------------------------------------------
+
+    def _prefill_one(self, slot: int, prompt: list[int]) -> None:
+        """Feed a prompt token by token through decode_step on the slot's
+        lane of the cache (views, so the engine's cache fills in place)."""
+        one = tree.map(lambda c: c[:, slot : slot + 1], self.cache)
+        pos = int(self.pos[slot])
+        for i in range(0, len(prompt), self.prefill_chunk):
+            part = torch.tensor(prompt[i : i + self.prefill_chunk], dtype=torch.int64, device=self.device)
+            for j in range(part.shape[0]):
+                self._step(part[j : j + 1, None], one, pos)
+                pos += 1
+        self.pos[slot] = pos
+
+    # --- main loop ------------------------------------------------------------
+
+    def _sample(self, logits: torch.Tensor, temperature: float) -> int:
+        if temperature > 0:
+            probs = torch.softmax(logits / temperature, dim=-1)
+            return int(torch.multinomial(probs, 1, generator=self.generator))
+        return int(torch.argmax(logits))
+
+    def run(self, requests: list[Request]) -> list[Completion]:
+        queue = list(requests)
+        active: dict[int, dict] = {}
+        done: list[Completion] = []
+
+        def admit():
+            for s in range(self.slots):
+                if not self.live[s] and queue:
+                    req = queue.pop(0)
+                    t0 = time.perf_counter()
+                    self.pos[s] = 0
+                    self._reset_slot(s)
+                    self._prefill_one(s, req.prompt[:-1])
+                    synchronize(self.device)
+                    active[s] = {
+                        "req": req,
+                        "out": [],
+                        "next": req.prompt[-1],
+                        "prefill_s": time.perf_counter() - t0,
+                        "t0": time.perf_counter(),
+                    }
+                    self.live[s] = True
+
+        admit()
+        while active:
+            tokens = np.zeros((self.slots, 1), np.int64)
+            for s, st in active.items():
+                tokens[s, 0] = st["next"]
+            tokens = torch.from_numpy(tokens).to(self.device)
+            # Slots at one position step together; decode_step takes one
+            # position, so slots whose positions differ step in turns.
+            groups: dict[int, list[int]] = {}
+            for s in active:
+                groups.setdefault(int(self.pos[s]), []).append(s)
+            for pos, slot_ids in groups.items():
+                stepped = torch.zeros((self.slots,), dtype=torch.bool)
+                stepped[slot_ids] = True
+                stepped = stepped.to(self.device)
+                col = pos % self.cache[0]["k"].shape[2]
+                kept = tree.map(lambda c: c[:, :, col].clone(), self.cache)
+                lg = self._step(tokens, self.cache, pos).float().cpu()
+
+                def merge(c, old):
+                    c[:, :, col] = torch.where(stepped.view(1, -1, 1, 1), c[:, :, col], old)
+
+                tree.map(merge, self.cache, kept)
+                for s in slot_ids:
+                    st = active[s]
+                    nxt = self._sample(lg[s], st["req"].temperature)
+                    st["out"].append(nxt)
+                    st["next"] = nxt
+                    self.pos[s] += 1
+                    if (
+                        len(st["out"]) >= st["req"].max_new_tokens
+                        or (self.eos_id is not None and nxt == self.eos_id)
+                        or self.pos[s] >= self.max_seq - 1
+                    ):
+                        done.append(
+                            Completion(
+                                id=st["req"].id,
+                                tokens=st["out"],
+                                prefill_s=st["prefill_s"],
+                                decode_s=time.perf_counter() - st["t0"],
+                            )
+                        )
+                        self.live[s] = False
+                        del active[s]
+            admit()
+        return sorted(done, key=lambda c: c.id)
+
+    def _reset_slot(self, s: int) -> None:
+        tree.map(lambda c: c[:, s].zero_(), self.cache)
 
 
 class SegmentationEngine:

@@ -71,3 +71,31 @@ def test_adamw_state_round_trip_keeps_the_namedtuple():
     again = bridge.params_from_numpy(as_numpy, device="cpu")
     assert type(again) is opt.AdamWState
     assert all(torch.equal(a, b) for a, b in zip(tree.leaves(again), tree.leaves(state)))
+
+
+def test_lm_params_and_cache_round_trip_bit_equal_in_bf16():
+    """The reference's TinyLlama smoke params in bf16 (a dict with a tuple
+    of stacked block dicts) and a decode cache cross numpy -> port ->
+    numpy bit-equal, in both directions, with their dtypes."""
+    from repro import configs as ref_configs
+    from repro.models import model as ref_model
+    from repro_torch import configs
+    from repro_torch.models import model
+
+    cfg = ref_configs.get_smoke("tinyllama-1.1b")
+    params = jax.tree.map(np.asarray, ref_model.init(jax.random.PRNGKey(0), cfg))
+    cache = jax.tree.map(lambda a: np.asarray(a) + np.asarray(1.5, a.dtype), ref_model.init_cache(cfg, 2, 8))
+    for ref_tree in (params, cache):
+        ported = bridge.params_from_numpy(ref_tree, device="cpu")
+        assert all(t.dtype == torch.bfloat16 for t in tree.leaves(ported))
+        back = bridge.params_to_numpy(ported)
+        flat_a, def_a = jax.tree.flatten(ref_tree)
+        flat_b, def_b = jax.tree.flatten(back)
+        assert def_a == def_b
+        for a, b in zip(flat_a, flat_b):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a.view(np.uint16), b.view(np.uint16))
+    own = model.init(configs.get_smoke("tinyllama-1.1b"), device="cpu")
+    again = bridge.params_from_numpy(bridge.params_to_numpy(own), device="cpu")
+    assert isinstance(again["blocks"], tuple)
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(tree.leaves(again), tree.leaves(own)))

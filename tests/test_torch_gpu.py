@@ -1,5 +1,5 @@
-"""K1, K2, K3 and their paths on the CUDA card, against their plain
-versions on the same card (and one train step against the CPU). Marked
+"""K1-K5 and their paths on the CUDA card, against their plain versions
+on the same card (and a train step and LM decoding against the CPU). Marked
 ``gpu``: without a card every test skips (the fixture decides, at run
 time). Run on a machine with an H100:
 
@@ -14,13 +14,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import tree
+from repro_torch import configs, tree
 from repro_torch.core import executors, meshnet, pipeline
 from repro_torch.data import mri
+from repro_torch.kernels import decode_attention as k4
 from repro_torch.kernels import dice as dice_kernel
 from repro_torch.kernels import dilated_conv3d as conv_kernel
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import ops, ref
+from repro_torch.models import model as lm
+from repro_torch.serving.engine import LMEngine, Request
 from repro_torch.training import optimizer, trainer
 
 pytestmark = pytest.mark.gpu
@@ -272,3 +275,95 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
             if name == "b" and i < len(cfg.model.dilations):
                 continue
             assert float((g.cpu() - cpu_layer[name]).abs().max()) <= 1e-4 * gnorm, (i, name)
+
+
+@pytest.mark.parametrize(
+    "B,H,KV,hd,S,pos,dtype",
+    [
+        (2, 8, 2, 32, 100, 57, torch.float32),  # the reference's four kernel cases
+        (1, 4, 4, 16, 64, 63, torch.float32),
+        (3, 16, 8, 64, 200, 10, torch.float32),
+        (1, 8, 1, 32, 96, 95, torch.float32),
+        (2, 8, 4, 32, 80, 40, torch.bfloat16),  # and its bf16 case
+        *[(4, 32, 4, 64, 1024, pos, torch.float32) for pos in (0, 1, 511, 512, 1023, 5000)],  # TinyLlama
+        (4, 32, 4, 64, 1024, 700, torch.bfloat16),
+        (2, 16, 16, 128, 300, 299, torch.float32),  # MHA, hd 128
+        (1, 16, 16, 256, 90, 80, torch.float32),  # gemma's hd 256: dynamic shared memory
+    ],
+)
+def test_decode_attention_matches_plain_version(cuda, B, H, KV, hd, S, pos, dtype):
+    g = torch.Generator().manual_seed(B * S + pos)
+    q, k, v = (torch.randn(s, generator=g).to(cuda, dtype) for s in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    before = k4.launches
+    got = k4.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1 and got.dtype == dtype and got.shape == q.shape
+    expect = ref.decode_attention(q, k, v, pos)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2  # tests/test_kernels.py
+    assert float((got.float() - expect.float()).abs().max()) <= tol
+
+
+def test_decode_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 1, 8, 32), device=cuda)
+    k = torch.zeros((1, 16, 2, 32), device=cuda)
+    with pytest.raises(TypeError):
+        k4.decode_attention(q.half(), k.half(), k.half(), 3)
+    with pytest.raises(TypeError):
+        k4.decode_attention(q, k.bfloat16(), k.bfloat16(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), k, 3)
+    with pytest.raises(ValueError, match="no kernel"):
+        k4.decode_attention(q, k.cpu(), k, 3)
+
+
+@pytest.mark.parametrize("affine", [False, True])
+@pytest.mark.parametrize("cin,cout,shape", [(1, 5, (2, 31, 33, 17)), (5, 5, (2, 31, 33, 17)), (21, 21, (1, 20, 17, 24))])
+@pytest.mark.parametrize("dilation", [1, 2, 4, 8, 16])
+def test_views_kernel_is_bit_equal_to_k1(cuda, dilation, cin, cout, shape, affine):
+    """K5 against K1 bit for bit (its role as K1's oracle), and against the
+    plain version within 5e-5 relative."""
+    x, w, b, s, o = _inputs(dilation * 7 + cin, shape, cin, cout, cuda)
+    kw = dict(dilation=dilation, scale=s, offset=o, fuse_affine=affine)
+    before = (conv_kernel.launches, conv_kernel.views_launches)
+    views = conv_kernel.dilated_conv3d(x, w, b, variant="views", **kw)
+    halo = conv_kernel.dilated_conv3d(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert (conv_kernel.launches, conv_kernel.views_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(views, halo)
+    expect = ref.dilated_conv3d(x, w, b, **kw)
+    assert float((views - expect).abs().max()) <= REL_TOL * float(expect.abs().max())
+
+
+def _lm(device):
+    cfg = dataclasses.replace(configs.get_smoke("tinyllama-1.1b"), dtype=torch.float32)
+    return cfg, lm.init(cfg, generator=torch.Generator().manual_seed(3), device=device)
+
+
+def test_decode_steps_on_the_card_match_the_cpu(cuda):
+    """12 decode steps of the smoke TinyLlama, batch 3: logits within 1e-4
+    of the largest logit; one K4 launch a layer a step."""
+    cfg, params = _lm("cpu")
+    card = tree.map(lambda t: t.to(cuda), params)
+    cache, card_cache = lm.init_cache(cfg, 3, 16, device="cpu"), lm.init_cache(cfg, 3, 16, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (3, 12), generator=torch.Generator().manual_seed(4))
+    before = k4.launches
+    for t in range(12):
+        expect, _ = lm.decode_step(params, toks[:, t : t + 1], cache, t, cfg)
+        got, _ = lm.decode_step(card, toks[:, t : t + 1].to(cuda), card_cache, t, cfg)
+        assert float((got.cpu() - expect).abs().max()) <= 1e-4 * float(expect.abs().max())
+    assert k4.launches == before + 12 * cfg.num_layers
+
+
+def test_lm_engine_on_the_card_matches_the_cpu(cuda):
+    """Mixed prompt lengths on 3 slots: the card's greedy tokens are the
+    CPU's, and every decode_step launched K4 once a layer."""
+    cfg, params = _lm("cpu")
+    g = torch.Generator().manual_seed(5)
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist(), max_new_tokens=6, id=i)
+            for i, n in enumerate((3, 8, 5, 2))]
+    expect = LMEngine(params, cfg, slots=3, max_seq=32, prefill_chunk=4, device="cpu").run(reqs)
+    eng = LMEngine(tree.map(lambda t: t.to(cuda), params), cfg, slots=3, max_seq=32, prefill_chunk=4, device=cuda)
+    before = k4.launches
+    got = eng.run(reqs)
+    assert [c.tokens for c in got] == [c.tokens for c in expect]
+    assert k4.launches - before == eng.steps * cfg.num_layers

@@ -92,6 +92,30 @@ class TestDilatedConv3D:
         )
         np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=KERNEL_ATOL)
 
+    def test_views_variant_against_pallas_k5_interpret(self):
+        # K5's TPU kernel, the 27-view schedule, one fused layer at 8^3,
+        # block 8, in interpret mode; the port's variant="views" on the CPU.
+        x, w, b, s, o = _conv_inputs(12, (1, 8, 8, 8), 5, 5)
+        expect = ref_conv_kernel.dilated_conv3d(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), dilation=4,
+            scale=jnp.asarray(s), offset=jnp.asarray(o), fuse_affine=True,
+            block=8, interpret=True, variant="views",
+        )
+        before = (conv_kernel.launches, conv_kernel.views_launches)
+        got = conv_kernel.dilated_conv3d(
+            torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), dilation=4,
+            scale=torch.from_numpy(s), offset=torch.from_numpy(o), fuse_affine=True, variant="views",
+        )
+        assert (conv_kernel.launches, conv_kernel.views_launches) == before
+        np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=KERNEL_ATOL)
+        with pytest.raises(ValueError, match="variant"):
+            conv_kernel.dilated_conv3d(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b), variant="rows")
+
+    def test_views_stage_one_tile_beside_the_weights(self):
+        # K5 stages an (8, 8, 8, Cin) input tile too: 91 KB at 21 -> 21
+        assert conv_kernel.smem_bytes(21, 21, "views") == (27 * 21 * 21 + 3 * 21 + 512 * 21) * 4
+        assert conv_kernel.smem_bytes(21, 21, "views") < conv_kernel.SMEM_LIMIT
+
     def test_four_dim_input_gets_a_channel(self):
         x, w, b, _, _ = _conv_inputs(2, ODD_SHAPE, 1, 5)
         t = torch.from_numpy(x)

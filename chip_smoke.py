@@ -17,7 +17,8 @@ on lines of its own:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds every kernel source of the port, all at once,
-            timed, with ptxas' register and shared-memory report
+            timed, with ptxas' register and shared-memory report; K1 and K2
+            (the conv tile core) spill no register at any width
 3. parity   K1 against its plain PyTorch version on the card, relative
             error <= 5e-5 of the output's magnitude; then K2 segment by
             segment against its plain version (same staging arrays in,
@@ -41,9 +42,15 @@ on lines of its own:
             runs under torch.profiler: device time by kernel and the share
             of the request the card was busy.
 6. times    CUDA-event medians of 20 runs: K1 at the main path's layer
-            shapes (kernel, plain, F.conv3d with TF32 off, bound); K2 per
-            segment of the 256^3 plan (kernel, plain, bound), and the d = 4
-            one-layer segment at tiles 16^3, 32^3, 64^3; the whole forwards.
+            shapes (kernel, plain, F.conv3d with TF32 off, bound, the share
+            of the bound, blocks, blocks an SM and waves, and K1 built
+            without its copies and without its FFMAs: the split of its
+            time); K2 per segment of
+            the 256^3 plan (the same, and the planner's modeled ms; its
+            blocks an SM held to the runtime's occupancy), the d = 4
+            one-layer segment at tiles 16^3, 32^3, 64^3, 16x16x256 and
+            4x4x256; the whole forwards under torch, cuda_fused and
+            cuda_megakernel.
             Each bound counts the function's own work, as K1's does: the
             in-volume taps, each input read once and each output written
             once. K2's plan_bound_ms prices its schedule instead: the halo
@@ -109,6 +116,7 @@ paths and shapes without a card; it never prints the ok line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import itertools
 import json
@@ -265,7 +273,10 @@ def k2_work(pln, i: int) -> tuple[int, int]:
         cin = seg.channels
     if seg.fuse_head:
         ops_ += 2 * voxels * seg.channels * seg.num_classes + voxels * seg.num_classes
-    n_params = k2._smem_layout(seg)[0]  # weights, bias, scale, offset; the head's
+    c, k = seg.channels, len(seg.dilations)  # weights, bias, scale, offset; the head's
+    n_params = 27 * seg.cin * c + 27 * c * c * (k - 1) + 3 * c * k
+    if seg.fuse_head:
+        n_params += c * seg.num_classes + seg.num_classes
     return ops_, 4 * (voxels * seg.cin + n_params + voxels * seg.cout)
 
 
@@ -295,6 +306,10 @@ def phase_build() -> None:
     for name in seconds:
         report = [line for line in _build.build_log(name).splitlines() if "ptxas" in line or "spill" in line]
         print(f"-- {name}.cu ptxas:\n" + "\n".join(report))
+    for name in ("dilated_conv3d", "megakernel"):  # the conv tile core at every width
+        spills = [line for line in _build.build_log(name).splitlines() if "spill" in line]
+        check(len(spills) >= 4 and all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills),
+              f"{name}.cu spills registers: {spills}")
 
 
 def phase_parity(dev) -> tuple[float, float]:
@@ -309,6 +324,9 @@ def phase_parity(dev) -> tuple[float, float]:
         ((1, 48, 48, 48), 18, 18, 8, True),
         ((2, 37, 45, 29), 5, 5, 16, True),
         ((2, 37, 45, 29), 1, 5, 2, False),
+        ((1, 40, 40, 300), 5, 5, 1, True),  # rows of two chunks
+        ((1, 30, 30, 30), 64, 21, 3, True),  # one warp a block, a narrower box
+        ((1, 24, 24, 100), 5, 10, 40, True),  # d past the box: three windows
     ]
     worst_abs = worst_rel = 0.0
     for shape, cin, cout, d, affine in cases:
@@ -395,7 +413,8 @@ def phase_forward(dev, size: int) -> None:
     for model, cfg, params in models:
         expect = meshnet.apply(params, x, cfg)
         pln = k2.plan_for_config(cfg, (size,) * 3)
-        print(f"{model} megakernel plan: {[(s.dilations, s.tile) for s in pln.segments]}; "
+        print(f"{model} megakernel plan: {[(s.dilations, s.tile) for s in pln.segments]}; blocks "
+              f"{[pln.segment_blocks(i) for i in range(len(pln.segments))]}; modeled {pln.modeled_ms():.4f} ms; "
               f"modeled bytes {pln.hbm_bytes()}; multiply-adds {pln.operations()}")
         for name, fn, tol in (("cuda_fused", ops.meshnet_apply, FORWARD_REL_TOL),
                               ("cuda_megakernel", ops.meshnet_apply_megakernel, MEGA_FORWARD_REL_TOL)):
@@ -577,10 +596,29 @@ def bound(ops_: float, bytes_: float, peak_flops: float, peak_bw: float) -> tupl
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def k1_ablation_ms(x, w, b, s, o, d) -> dict:
+    """K1's time on these inputs built without its copies (FFMAs on
+    whatever its ring holds) and without its FFMAs (copies and loop only):
+    the split of a launch (csrc/conv_tile.cuh's two switches). Called on
+    the C entry point, so these launches count nowhere."""
+    B, D, H, W, cin = x.shape
+    out = torch.empty((B, D, H, W, w.shape[-1]), device=x.device)
+    times = {}
+    for what, define in (("fma_only_ms", "CONV_TILE_NO_COPY"), ("copy_only_ms", "CONV_TILE_NO_FMA")):
+        fn = _build.load("dilated_conv3d", (define,)).repro_dilated_conv3d_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(), o.data_ptr(), out.data_ptr(),
+                B, D, H, W, cin, w.shape[-1], d, 1, torch.cuda.current_stream().cuda_stream)
+        check(fn(*args) == 0, f"K1 ablation {define} launches")
+        times[what] = time_ms(lambda: fn(*args))
+    return times
+
+
 def phase_times(dev, card: str, size: int) -> tuple[list[dict], list[dict]]:
     print(f"== phase 6: times at the main path's shapes ({size}^3, card: {card})")
     torch.backends.cudnn.benchmark = False
     _, peak_flops, peak_bw = peaks_for(card)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cfg = meshnet.PAPER_MODELS["gwm_light"]
     per_forward = {}
     cin = cfg.in_channels
@@ -599,14 +637,18 @@ def phase_times(dev, card: str, size: int) -> tuple[list[dict], list[dict]]:
         lib_out = F.conv3d(x_ncdhw, w_oidhw, b, padding=d, dilation=d).permute(0, 2, 3, 4, 1)
         _, lib_rel = rel_err(lib_out, ref.dilated_conv3d(x, w, b, dilation=d))
         kernel_ms = time_ms(lambda: k1.dilated_conv3d(x, w, b, **kw))
+        ablations = k1_ablation_ms(x, w, b, s, o, d)
         plain_ms = time_ms(lambda: ref.dilated_conv3d(x, w, b, **kw))
         library_ms = time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, b, padding=d, dilation=d))
         ops_, bytes_ = k1_work(shape, cin, cout, d)
         bound_ms, bound_by = bound(ops_, bytes_, peak_flops, peak_bw)
+        blocks, per_sm = k1.k1_occupancy(shape, cin, cout, d)
         row = dict(
             dilation=d, cin=cin, cout=cout, launches_per_forward=count,
             kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, ops=ops_, bytes=bytes_, library_rel_err=lib_rel,
+            bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / kernel_ms,
+            blocks=blocks, blocks_per_sm=per_sm, waves=blocks / (sms * per_sm), **ablations,
+            ops=ops_, bytes=bytes_, library_rel_err=lib_rel,
         )
         print("times " + json.dumps(row))
         rows.append(row)
@@ -626,24 +668,34 @@ def phase_times(dev, card: str, size: int) -> tuple[list[dict], list[dict]]:
         bound_ms, bound_by = bound(ops_, bytes_, peak_flops, peak_bw)
         macs, modeled = pln.segment_operations(i), pln.segment_hbm_bytes(i)
         plan_bound_ms, plan_bound_by = bound(2 * macs, modeled, peak_flops, peak_bw)
+        blocks, per_sm = pln.segment_blocks(i), k2.blocks_per_sm(seg)
+        check(per_sm == int(k2._blocks_per_sm(k2._segment_smem_bytes(seg), seg.channels)),
+              f"segment {i}: the planner's blocks an SM differ from the runtime's {per_sm}")
         row = dict(
             segment=i, dilations=list(seg.dilations), tile=list(seg.tile), fuse_head=seg.fuse_head,
-            smem_bytes=int(k2._segment_smem_bytes(seg)), blocks=math.prod(p // t for p, t in zip(pln.padded(seg), seg.tile)),
-            kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, ops=ops_, bytes=bytes_,
-            plan_bound_ms=plan_bound_ms, plan_bound_by=plan_bound_by, multiply_adds=macs, modeled_bytes=modeled,
+            smem_bytes=int(k2._segment_smem_bytes(seg)), blocks=blocks, blocks_per_sm=per_sm,
+            waves=blocks / (sms * per_sm), kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, share_of_bound=bound_ms / kernel_ms, modeled_ms=pln.segment_modeled_ms(i),
+            ops=ops_, bytes=bytes_, plan_bound_ms=plan_bound_ms, plan_bound_by=plan_bound_by,
+            multiply_adds=macs, modeled_bytes=modeled,
         )
         print("times " + json.dumps(row))
         seg_rows.append(row)
 
-    # The plan's one-layer segments take tiles of 64^3, so 64 blocks. The
-    # d = 4 layer alone at smaller tiles shows what the block count costs.
+    print(f"times K2 plan: modeled {pln.modeled_ms():.4f} ms; kernels {sum(r['kernel_ms'] for r in seg_rows):.4f} ms; "
+          f"bound {sum(r['bound_ms'] for r in seg_rows):.4f} ms")
+
+    # The d = 4 layer alone at other tiles shows what the tile and the
+    # block count cost: cubes of 16, 32, 64 and the plan's 256-wide rows.
     staging = torch.rand((1,) + (size + 8,) * 3 + (cfg.channels,), generator=gen).to(dev)
-    for t in (16, 32, 64):
-        seg = k2.Segment(2, (4,), cfg.channels, cfg.channels, (t, t, t))
+    for t in ((16,) * 3, (32,) * 3, (64,) * 3, (16, 16, 256), (4, 4, 256)):
+        seg = k2.Segment(2, (4,), cfg.channels, cfg.channels, t)
         one = k2.MegakernelPlan((seg,), (size,) * 3)
         operands = ops.megakernel_operands(params, cfg, seg)
         ms = time_ms(lambda: k2.run_segment(staging, one, 0, *operands))
-        print("times tile sweep " + json.dumps(dict(dilation=4, tile=t, blocks=(-(-size // t)) ** 3, kernel_ms=ms)))
+        print("times tile sweep " + json.dumps(dict(
+            dilation=4, tile=list(t), blocks=one.segment_blocks(0), blocks_per_sm=k2.blocks_per_sm(seg),
+            kernel_ms=ms, modeled_ms=one.segment_modeled_ms(0))))
 
     xs = x[..., 0]
     for name, fn in (("torch", meshnet.apply), ("cuda_fused", ops.meshnet_apply),

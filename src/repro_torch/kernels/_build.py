@@ -28,7 +28,7 @@ NVCC_FLAGS = (
 #: shared memory one block can use on the target (sm_90a, bytes).
 SMEM_LIMIT = 232_448
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -46,31 +46,32 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: tuple = ()) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: list[str] | None = None) -> dict[str, float]:
+def build_all(names: list[str] | None = None, defines: tuple = ()) -> dict[str, float]:
     """Build every named source (default: all) that is not built yet, one
-    nvcc each, all started together. Returns seconds per source built
-    (0.0 for one already built). Raises RuntimeError with nvcc's output if
-    any build fails."""
+    nvcc each, all started together, with the preprocessor ``defines``
+    (none for the port's kernels; chip_smoke.py's ablations set some).
+    Returns seconds per source built (0.0 for one already built). Raises
+    RuntimeError with nvcc's output if any build fails."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
     seconds = {}
     for name in names:
-        target = _target(name)
+        target = _target(name, defines)
         if target.exists():
             seconds[name] = 0.0
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, target, time.perf_counter())
     failures = []
@@ -95,9 +96,11 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    if name not in _LIBS:
-        build_all([name])
-        _LIBS[name] = ctypes.CDLL(str(_target(name)))
-    return _LIBS[name]
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` built with ``defines``,
+    built first if needed."""
+    key = (name, defines)
+    if key not in _LIBS:
+        build_all([name], defines)
+        _LIBS[key] = ctypes.CDLL(str(_target(name, defines)))
+    return _LIBS[key]

@@ -1,8 +1,11 @@
 """Wrappers of K1 and K5, the fused 3x3x3 dilated conv (+ folded BN + ReLU).
 
 Counterpart of ``repro/kernels/dilated_conv3d.py::dilated_conv3d``, whose
-``variant`` picks the schedule: ``"halo"`` (K1, ``csrc/dilated_conv3d.cu``,
-one thread per output voxel reading its taps from device memory) or
+``variant`` picks the schedule: ``"halo"`` (K1, ``csrc/dilated_conv3d.cu``
+on the conv tile core ``csrc/conv_tile.cuh``: a warp a chunk of up to
+32 R voxels of M output rows d apart, R voxels x Cout channels a row in
+registers per lane, one input box per (tz, input row) staged by cp.async
+into a double-buffered ring) or
 ``"views"`` (K5, ``csrc/dilated_conv3d_views.cu``, the 27-shifted-tile
 schedule, bit-equal to K1 and its oracle on the card). Both are CUDA C++
 for sm_90a (each source's header says what bounds it), loaded through
@@ -39,11 +42,62 @@ _SOURCES = {"halo": ("dilated_conv3d", "repro_dilated_conv3d"),
 _LIBS: dict = {}
 
 
+#: the conv tile core's block (csrc/conv_tile.cuh kWarps): 4 warps, K1's
+#: at most, K2's always; and the boxes each warp keeps in its ring
+#: (kStages).
+WARPS = 4
+STAGES = 2
+
+
+def voxels_per_lane(cout: int) -> int:
+    """R, the output voxels along x one lane of K1 or K2 computes in each
+    of its rows for ``cout`` channels (csrc/conv_tile.cuh ``Blocking``)."""
+    return 8 if cout <= 5 else 4
+
+
+def rows_per_warp(cout: int) -> int:
+    """M, the output rows (d apart in y) one warp of K1 or K2 computes
+    for ``cout`` channels (csrc/conv_tile.cuh ``Blocking``)."""
+    return 2 if cout <= 10 else 1
+
+
+def _ceil4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def k1_layout(cin: int, cout: int) -> tuple[int, int, int]:
+    """(warps a block, ring positions a box, shared-memory floats) of K1
+    for cin -> cout, the rule of ``csrc/dilated_conv3d.cu::layout``: the
+    weights at row stride Cout rounded up to 4, bias, scale and offset
+    (3 Cout rounded up to 4), then every warp's ring of 2 slots of
+    ceil4(WB (Cin | 1)) + 4 floats, WB = 32 R + 32; 4 warps where that
+    fits, else 2 or 1, then a narrower box (never below 3 positions; over
+    the limit it cannot launch)."""
+    cs = cin | 1
+    fixed = 27 * cin * _ceil4(cout) + _ceil4(3 * cout)
+    limit = SMEM_LIMIT // 4
+    wb = 32 * voxels_per_lane(cout) + 32
+    warps = WARPS
+    def slot(wb):
+        return _ceil4(wb * cs) + 4
+
+    while warps >= 1:
+        floats = fixed + warps * STAGES * slot(wb)
+        if floats <= limit:
+            return warps, wb, floats
+        warps //= 2
+    avail = (limit - fixed) // STAGES - 4
+    wb = max(int(avail / 4) * 4 // cs if avail >= 0 else -1, 3)  # C's truncating division
+    return 1, wb, fixed + STAGES * slot(wb)
+
+
 def smem_bytes(cin: int, cout: int, variant: str = "halo") -> int:
-    """Shared memory one block stages: weights, bias, scale and offset;
-    for K5 also one (8, 8, 8, Cin) input tile."""
-    tile = VIEWS_TILE**3 * cin if variant == "views" else 0
-    return (27 * cin * cout + 3 * cout + tile) * 4
+    """Shared memory one block allocates. K1: its weights, bias, scale and
+    offset, then its warps' staging ring (``k1_layout``). K5: weights,
+    bias, scale and offset, then one (8, 8, 8, Cin) input tile."""
+    if variant == "views":
+        return (27 * cin * cout + 3 * cout + VIEWS_TILE**3 * cin) * 4
+    return 4 * k1_layout(cin, cout)[2]
 
 
 def _kernel(variant: str):
@@ -54,6 +108,13 @@ def _kernel(variant: str):
         fn = getattr(lib, f"{prefix}_f32")
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        if variant == "halo":
+            lib.repro_dilated_conv3d_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.repro_dilated_conv3d_smem_bytes.restype = ctypes.c_longlong
+            lib.repro_dilated_conv3d_blocks.argtypes = [ctypes.c_int] * 7
+            lib.repro_dilated_conv3d_blocks.restype = ctypes.c_longlong
+            lib.repro_dilated_conv3d_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.repro_dilated_conv3d_blocks_per_sm.restype = ctypes.c_int
         supports = getattr(lib, f"{prefix}_supports")
         supports.argtypes = [ctypes.c_int]
         supports.restype = ctypes.c_int
@@ -61,6 +122,15 @@ def _kernel(variant: str):
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[variant] = (lib, fn, supports)
     return _LIBS[variant]
+
+
+def k1_occupancy(shape: tuple, cin: int, cout: int, dilation: int) -> tuple[int, int]:
+    """(blocks, blocks an SM holds) of one K1 launch over ``shape`` (B, D,
+    H, W), from the built kernel (the runtime's occupancy calculator). On
+    the card only."""
+    lib = _kernel("halo")[0]
+    return (int(lib.repro_dilated_conv3d_blocks(*shape, cin, cout, dilation)),
+            int(lib.repro_dilated_conv3d_blocks_per_sm(cin, cout)))
 
 
 def _check_shapes(x, w, b, scale, offset, dilation):

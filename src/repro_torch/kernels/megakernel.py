@@ -3,7 +3,7 @@
 Counterpart of ``repro/kernels/megakernel.py``, at fp32, re-priced for
 Hopper. The forward splits the layer stack into consecutive *segments*.
 One launch of K2 (``csrc/megakernel.cu``) runs a whole segment per output
-tile: the segment's first layer reads its taps from the input staging
+tile: the segment's first layer stages its taps from the input staging
 array in device memory, the hidden layers' outputs stay in the block's
 shared memory (ping and pong), and the last layer writes the tile, or the
 fused 1x1x1 head's logits, into the output staging array. Positions
@@ -14,15 +14,23 @@ halo borders are never written and never read.
 The reference stages each tile's haloed input window on chip. On Hopper
 that window cannot fit: at d = 16 it is (t + 32)^3 * 5 * 4 bytes, over
 700 KB even at a tile of 1, against 227 KB of shared memory a block. So
-only the hidden activations are priced on chip here
-(``_segment_smem_bytes``, exactly what K2 allocates), and tiles may be
-smaller than 8 and need not be multiples of 8 (``TILE_CANDIDATES``).
+K2's first layer stages one box of one input row at a time, and only the
+hidden activations are held whole (``_segment_smem_bytes``, exactly what
+K2 allocates). Every layer runs on the conv tile core that K1 shares
+(``csrc/conv_tile.cuh``): a warp computes a chunk of up to 32 R voxels of
+one output row.
 
 The planner picks segment boundaries and per-axis tiles by dynamic
-programming over the modeled device-memory bytes of the reference
-(``_segment_hbm_bytes``), the one formula that ``MegakernelPlan.hbm_bytes``
-reports. ``MegakernelPlan.operations`` counts K2's multiply-adds, halo
-recompute included, for the bound of a forward.
+programming over modeled device time (``_segment_modeled_ms``): per
+segment the larger of its multiply-adds as K2's warps issue them over the
+card's fp32 FMA rate and its device-memory bytes as K2 moves them
+(``_segment_device_bytes``) over the memory rate, scaled by the wave
+quantisation of its blocks on the card's SMs.
+``MegakernelPlan.modeled_ms`` reports that objective;
+``MegakernelPlan.hbm_bytes`` still reports the reference's byte formula
+(``_segment_hbm_bytes``) on the chosen segments, and
+``MegakernelPlan.operations`` counts K2's multiply-adds, halo recompute
+included, for the bound of a forward.
 
 A CUDA tensor launches K2 or raises; a CPU tensor takes the plain version
 (``kernels/ref.py::megakernel_segment``). ``launches`` counts kernel
@@ -41,17 +49,44 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build, quantize, ref
+from repro_torch.kernels import dilated_conv3d as conv
 
 #: the planner's default budget: all the shared memory one block can use.
 SMEM_BUDGET = _build.SMEM_LIMIT
 
 #: per-axis tile candidates. Sizes below 8 and off the multiples of 8 let a
 #: segment whose hidden activations are large still fit one block. They
-#: stop at 64 so that a 256^3 volume still makes 64 blocks or more.
-TILE_CANDIDATES = (2, 3, 4, 5, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32, 40, 48, 56, 64)
+#: reach 256 so that one tile can span a row of a 256^3 volume: a warp of
+#: K2 covers 32 R voxels along x, 256 at C <= 10. No floor on the block
+#: count is needed: the objective prices blocks and waves.
+TILE_CANDIDATES = (2, 3, 4, 5, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32, 40, 48, 56, 64, 96, 128, 192, 256)
 
 #: the most layers one segment may hold (the kernel's fixed dilation array).
 MAX_LAYERS = 16
+
+#: the card the planner prices, an NVIDIA H100 SXM (NVIDIA's data sheet):
+#: its SMs, the fp32 FMA rate of its CUDA cores (67 TFLOP/s, two
+#: operations an FMA) and its device-memory rate; each SM's shared memory
+#: (228 KB, of which the card reserves 1 KB a block) and threads.
+SMS = 132
+FMA_PER_S = 67e12 / 2
+HBM_BYTES_PER_S = 3.35e12
+SM_SMEM_BYTES = 233_472
+BLOCK_SMEM_RESERVED = 1024
+SM_THREADS = 2048
+
+#: K2's block and each warp's ring: the conv tile core's.
+WARPS = conv.WARPS
+STAGES = conv.STAGES
+THREADS = 32 * WARPS
+
+#: registers a thread of K2 takes, by width (the most over the first-layer
+#: channel counts built; they round up to the same multiple of 8): ptxas'
+#: report for sm_90a, which chip_smoke.py phase 2 prints and
+#: tests/test_torch_gpu.py holds to the runtime's occupancy. An SM's
+#: 65,536 registers go to warps in units of 8 a thread.
+REGISTERS = {5: 224, 10: 222, 18: 201, 21: 226}
+SM_REGISTERS = 65_536
 
 #: kernel launches since the counter was last reset (CPU calls don't count).
 launches = 0
@@ -106,20 +141,47 @@ class Segment:
         return sizes
 
 
+def _blocking(c: int) -> tuple[int, int, int, int]:
+    """(R, M, CP, X) of the conv tile core for C channels: voxels a lane
+    computes along x in each row, rows a warp computes (d apart in y), the
+    weight row stride (C rounded up to 4), and the x extent of one warp's
+    chunk (32 R)."""
+    r = conv.voxels_per_lane(c)
+    return r, conv.rows_per_warp(c), -(-c // 4) * 4, 32 * r
+
+
+def _row_groups(n, d, m):
+    """Groups of m rows d apart that cover n rows (csrc/conv_tile.cuh
+    ``row_groups``): d for each whole block of m d rows, then min(rest,
+    d). Accepts numpy arrays."""
+    return n // (m * d) * d + np.minimum(n % (m * d), d)
+
+
 def _smem_layout(seg: Segment) -> tuple:
-    """(params, ping, pong) in floats: what one block of K2 holds in shared
-    memory. params is every layer's weights, bias, scale and offset, then
-    the head's weights and bias when fused; ping and pong hold the hidden
-    layers' outputs (even and odd layers before the last). The last
-    layer's output goes straight to device memory. Accepts numpy tiles."""
+    """(params, ping, pong, ring) in floats: what one block of K2 holds in
+    shared memory. params is every layer's weights (row stride C rounded
+    up to 4), then its bias, scale and offset (3 C rounded up to 4), then
+    the head's weights and bias when fused (rounded up to 4); ping and
+    pong hold the hidden layers' outputs (even and odd layers before the
+    last) at channel stride C | 1, rounded up to 4; ring is the first
+    layer's staging, two slots for each warp that has rows of its output
+    region (at most 4), each ceil4((t_x + 2 min(d, t_x)) (Cin | 1)) + 4
+    floats, t_x the region's x extent up to 32 R. The last layer's output
+    goes straight to device memory. Accepts numpy tiles."""
     c, k = seg.channels, len(seg.dilations)
-    params = 27 * seg.cin * c + 27 * c * c * (k - 1) + 3 * c * k
+    _, m, cp, x_max = _blocking(c)
+    params = 27 * seg.cin * cp + 27 * c * cp * (k - 1) + k * _ceil_to(3 * c, 4)
     if seg.fuse_head:
-        params += c * seg.num_classes + seg.num_classes
-    hidden = [_prod3(s) for s in _layer_sizes(seg.tile, seg.dilations)[1:k]]
-    ping = functools.reduce(np.maximum, hidden[0::2]) * c if hidden else 0
-    pong = functools.reduce(np.maximum, hidden[1::2]) * c if len(hidden) > 1 else 0
-    return params, ping, pong
+        params += _ceil_to(c * seg.num_classes + seg.num_classes, 4)
+    sizes = _layer_sizes(seg.tile, seg.dilations)
+    hidden = [_ceil_to(_prod3(s) * (c | 1), 4) for s in sizes[1:k]]
+    ping = functools.reduce(np.maximum, hidden[0::2]) if hidden else 0
+    pong = functools.reduce(np.maximum, hidden[1::2]) if len(hidden) > 1 else 0
+    s, d0 = sizes[1], seg.dilations[0]  # the first layer's output region
+    tx = np.minimum(s[2], x_max)
+    stagers = np.minimum(WARPS, s[0] * _row_groups(s[1], d0, m) * -(-s[2] // tx))  # warps that have rows of it
+    ring = stagers * STAGES * (_ceil_to((tx + 2 * np.minimum(d0, tx)) * (seg.cin | 1), 4) + 4)
+    return params, ping, pong, ring
 
 
 def _segment_smem_bytes(seg: Segment):
@@ -145,6 +207,23 @@ def _segment_hbm_bytes(seg: Segment, vol, batch: int = 1):
     return 4 * (batch * data + ntiles * wgt)
 
 
+def _segment_device_bytes(seg: Segment, vol, batch: int = 1):
+    """Device-memory bytes of one segment's launch as K2 moves them on
+    Hopper: the volume read once from the input staging array, the written
+    region once, the parameters once. Neighbouring tiles' haloed windows
+    overlap; K2 reads a window row by row, and the model takes the rows
+    that neighbouring blocks share to come from the 50 MB L2, not from
+    device memory (not measured; the reference's formula,
+    ``_segment_hbm_bytes``, charges every tile its whole window). Accepts
+    numpy tiles."""
+    padded = _prod3(tuple(-(-v // t) * t for v, t in zip(vol, seg.tile)))
+    c, k = seg.channels, len(seg.dilations)
+    n_params = 27 * seg.cin * c + 27 * c * c * (k - 1) + 3 * c * k
+    if seg.fuse_head:
+        n_params += c * seg.num_classes + seg.num_classes
+    return 4 * (batch * (math.prod(vol) * seg.cin + padded * seg.cout) + n_params)
+
+
 def _input_pad_bytes(first: Segment, vol, batch: int = 1):
     """The copy of the input into the first staging array: read the volume,
     write the padded array."""
@@ -164,6 +243,62 @@ def _segment_macs(seg: Segment, vol, batch: int = 1) -> int:
     if seg.fuse_head:
         per_tile += _prod3(seg.tile) * seg.channels * seg.num_classes
     return batch * ntiles * per_tile
+
+
+def _ntiles(seg: Segment, vol):
+    return _prod3(tuple(-(-v // t) for v, t in zip(vol, seg.tile)))
+
+
+def _segment_issued_macs(seg: Segment, vol, batch: int = 1):
+    """Multiply-adds as K2's warps issue them for one segment: per layer
+    the region cut into items of M rows d apart x one chunk of 32 R voxels
+    (rows and lanes past the region included), dealt to the block's 4
+    warps in rounds (idle warps of the last round included), then the
+    fused head over the last layer's items. Accepts numpy tiles."""
+    c = seg.channels
+    _, m, _, x_max = _blocking(c)
+    per_block = 0
+    for i, (s, d) in enumerate(zip(_layer_sizes(seg.tile, seg.dilations)[1:], seg.dilations)):
+        items = s[0] * _row_groups(s[1], d, m) * -(-s[2] // x_max)
+        slots = -(-items // WARPS) * WARPS * m * x_max
+        per_block = per_block + slots * 27 * (seg.cin if i == 0 else c) * c
+    if seg.fuse_head:
+        per_block = per_block + slots * c * seg.num_classes
+    return batch * _ntiles(seg, vol) * per_block
+
+
+def _blocks_per_sm(smem_bytes, channels: int):
+    """Blocks of K2 one SM holds, by shared memory, threads and registers.
+    Accepts numpy arrays."""
+    by_smem = SM_SMEM_BYTES // (smem_bytes + BLOCK_SMEM_RESERVED)
+    regs = REGISTERS.get(channels, 255)  # a width K2 is not built for: the most a thread takes
+    by_regs = SM_REGISTERS // (_ceil_to(regs, 8) * THREADS)
+    return np.minimum(np.minimum(by_smem, min(SM_THREADS // THREADS, by_regs)), 32)
+
+
+def _wave_quantisation(blocks, per_sm):
+    """ceil(waves) / waves for ``blocks`` on the card's SMs at ``per_sm``
+    blocks each: the factor by which the last, partial wave stretches a
+    launch. Accepts numpy arrays."""
+    waves = blocks / (SMS * np.maximum(per_sm, 1))
+    return np.ceil(waves) / waves
+
+
+def _segment_modeled_ms(seg: Segment, vol, batch: int = 1):
+    """Modeled device time of one segment's launch (ms): the larger of its
+    issued multiply-adds over ``FMA_PER_S`` and its device-memory bytes
+    (``_segment_device_bytes``) over ``HBM_BYTES_PER_S``, times the wave
+    quantisation of its blocks. The planner's DP objective. Accepts numpy
+    tiles."""
+    t_ops = _segment_issued_macs(seg, vol, batch) / FMA_PER_S
+    t_bytes = _segment_device_bytes(seg, vol, batch) / HBM_BYTES_PER_S
+    q = _wave_quantisation(batch * _ntiles(seg, vol), _blocks_per_sm(_segment_smem_bytes(seg), seg.channels))
+    return 1e3 * q * np.maximum(t_ops, t_bytes)
+
+
+def _input_pad_ms(first: Segment, vol, batch: int = 1):
+    """Modeled time of the input's copy into the first staging array."""
+    return 1e3 * _input_pad_bytes(first, vol, batch) / HBM_BYTES_PER_S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +345,27 @@ class MegakernelPlan:
         """Multiply-adds of one forward through K2, halo recompute and the
         fused head included (each is 2 floating-point operations)."""
         return sum(self.segment_operations(i, batch) for i in range(len(self.segments)))
+
+    def segment_blocks(self, i: int, batch: int = 1) -> int:
+        """Blocks of segment i's launch: one per (tile, batch member)."""
+        return batch * _ntiles(self.segments[i], self.vol)
+
+    def segment_waves(self, i: int, batch: int = 1) -> float:
+        """Waves of segment i's blocks on the card's SMs."""
+        seg = self.segments[i]
+        per_sm = int(_blocks_per_sm(_segment_smem_bytes(seg), seg.channels))
+        return self.segment_blocks(i, batch) / (SMS * per_sm)
+
+    def segment_modeled_ms(self, i: int, batch: int = 1) -> float:
+        """Modeled device time of segment i's launch (ms)."""
+        return float(_segment_modeled_ms(self.segments[i], self.vol, batch))
+
+    def modeled_ms(self, batch: int = 1) -> float:
+        """Modeled device time of one forward (ms): the input's copy into
+        the first staging array, then every segment's launch. The planner
+        minimises this same sum."""
+        total = float(_input_pad_ms(self.segments[0], self.vol, batch))
+        return total + sum(self.segment_modeled_ms(i, batch) for i in range(len(self.segments)))
 
 
 def _axis_candidates(v: int) -> list[int]:
@@ -270,12 +426,13 @@ def plan_for_config(
 
 
 def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch):
-    """(least modeled bytes, segments) over every split of the schedule into
-    segments and every tile of each. A segment's cost does not depend on
-    the other segments, so best[i], the least cost of layers i.., is the
-    minimum over j of segment (i, j)'s cheapest fitting tile plus best[j];
-    each segment's cost and shared memory are evaluated over the whole
-    tile grid at once, in exact int64."""
+    """(least modeled ms, segments) over every split of the schedule into
+    segments and every tile of each. A segment's time does not depend on
+    the other segments, so best[i], the least time of layers i.., is the
+    minimum over j of segment (i, j)'s fastest fitting tile plus best[j];
+    each segment's time and shared memory are evaluated over the whole
+    tile grid at once. Among tiles of equal time the one with the fewest
+    modeled bytes wins."""
     n = len(dils)
     grids = tuple(np.meshgrid(*[np.array(_axis_candidates(v), np.int64) for v in vol], indexing="ij"))
     inf = float("inf")
@@ -296,12 +453,17 @@ def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch):
     for i in range(n - 1, -1, -1):
         for j in range(i + 1, min(n, i + MAX_LAYERS) + 1):
             seg = seg_for(i, j, grids)
-            cost = _segment_hbm_bytes(seg, vol, batch)
+            ms = _segment_modeled_ms(seg, vol, batch)
             if i == 0:
-                cost = cost + _input_pad_bytes(seg, vol, batch)
-            cost = np.where(_segment_smem_bytes(seg) <= smem_budget, cost.astype(np.float64), inf)
-            flat = int(np.argmin(cost))
-            c = float(cost.reshape(-1)[flat]) + best[j]
+                ms = ms + _input_pad_ms(seg, vol, batch)
+            cost = np.where(_segment_smem_bytes(seg) <= smem_budget, ms, inf).reshape(-1)
+            least = float(cost.min())
+            if least == inf:
+                continue
+            ties = np.flatnonzero(cost <= least * (1 + 1e-12))
+            hbm = np.broadcast_to(_segment_hbm_bytes(seg, vol, batch), grids[0].shape).reshape(-1)
+            flat = int(ties[np.argmin(hbm[ties])])
+            c = float(cost[flat]) + best[j]
             if c < best[i]:
                 best[i] = c
                 choice[i] = (j, tuple(int(g.reshape(-1)[flat]) for g in grids))
@@ -312,7 +474,7 @@ def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch):
         j, tile = choice[i]
         segments.append(seg_for(i, j, tile))
         i = j
-    return int(best[0]), tuple(segments)
+    return best[0], tuple(segments)
 
 
 @functools.lru_cache(maxsize=256)
@@ -351,6 +513,8 @@ def _kernel():
         fn.restype = ctypes.c_int
         lib.repro_megakernel_supports.argtypes = [ctypes.c_int]
         lib.repro_megakernel_supports.restype = ctypes.c_int
+        lib.repro_megakernel_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.repro_megakernel_blocks_per_sm.restype = ctypes.c_int
         lib.repro_megakernel_error_string.argtypes = [ctypes.c_int]
         lib.repro_megakernel_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -380,6 +544,28 @@ def _check_operands(x, pln: MegakernelPlan, i: int, layers, head):
         tuple(head[0].shape) != (c, seg.num_classes) or tuple(head[1].shape) != (seg.num_classes,)
     ):
         raise ValueError(f"head must be ({c}, {seg.num_classes}) and ({seg.num_classes},)")
+
+
+def blocks_per_sm(seg: Segment) -> int:
+    """Blocks of ``seg`` one SM holds, from the built K2 (the runtime's
+    occupancy calculator), against which ``_blocks_per_sm`` models it. On
+    the card only."""
+    return int(_kernel().repro_megakernel_blocks_per_sm(seg.channels, seg.cin, int(_segment_smem_bytes(seg))))
+
+
+def geometry(x_shape: tuple, pln: MegakernelPlan, i: int) -> list[int]:
+    """The geometry array K2's entry point takes for segment ``i`` of
+    ``pln`` on an input staging array of shape ``x_shape``: B, cin, C, k,
+    classes (0 without the head), vol, tile, the input's dims and halo,
+    the output's dims and halo, the shared-memory layout (params, ping,
+    pong, ring floats; K2 checks it against its own), then the
+    dilations."""
+    seg = pln.segments[i]
+    return [
+        x_shape[0], seg.cin, seg.channels, len(seg.dilations), seg.num_classes if seg.fuse_head else 0,
+        *pln.vol, *seg.tile, *x_shape[1:4], seg.halo, *pln.out_dims(i), pln.out_halo(i),
+        *(int(v) for v in _smem_layout(seg)), *seg.dilations,
+    ]
 
 
 def run_segment(
@@ -424,14 +610,8 @@ def run_segment(
     if smem > SMEM_BUDGET:
         raise ValueError(f"segment {i} needs {smem} bytes of shared memory, over the {SMEM_BUDGET} one block can use")
     params = torch.cat([t.reshape(-1) for t in tensors[1:]])
-    out_dims = pln.out_dims(i)
-    out = torch.empty((x.shape[0],) + out_dims + (seg.cout,), dtype=torch.float32, device=x.device)
-    n_params, ping, pong = (int(v) for v in _smem_layout(seg))
-    geom = [
-        x.shape[0], seg.cin, seg.channels, len(seg.dilations), seg.num_classes if seg.fuse_head else 0,
-        *pln.vol, *seg.tile, *x.shape[1:4], seg.halo, *out_dims, pln.out_halo(i),
-        n_params, ping, pong, *seg.dilations,
-    ]
+    out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=torch.float32, device=x.device)
+    geom = geometry(tuple(x.shape), pln, i)
     geom_c = (ctypes.c_int * len(geom))(*geom)
     err = lib.repro_megakernel_segment_f32(
         x.data_ptr(), params.data_ptr(), out.data_ptr(), geom_c, len(geom),

@@ -65,6 +65,59 @@ def test_kernel_matches_plain_version(cuda, dilation, cin, cout, affine):
     assert err <= REL_TOL, err
 
 
+@pytest.mark.parametrize("dilation", [1, 3, 16])
+@pytest.mark.parametrize("cin", [1, 5, 64])
+@pytest.mark.parametrize("cout", [5, 10, 18, 21])
+def test_kernel_every_width_at_the_odd_shape(cuda, cout, cin, dilation):
+    """K1 on the conv tile core at every instantiated width with Cin 1, 5
+    and 64 (64 -> 21 shrinks the block to fewer warps), batch 2 at the odd
+    shape (10, 12, 14); d = 16 is past every extent, so only the centre
+    tap is inside the volume."""
+    x, w, b, s, o = _inputs(cout * 100 + cin + dilation, (2, 10, 12, 14), cin, cout, cuda)
+    kw = dict(dilation=dilation, scale=s, offset=o, fuse_affine=True)
+    got = conv_kernel.dilated_conv3d(x, w, b, **kw)
+    torch.cuda.synchronize()
+    expect = ref.dilated_conv3d(x, w, b, **kw)
+    assert float((got - expect).abs().max()) <= REL_TOL * float(expect.abs().max())
+
+
+@pytest.mark.parametrize(
+    "shape,cin,cout,dilation",
+    [
+        ((1, 4, 5, 300), 5, 5, 1),  # two chunks of 256 voxels a row, the second ragged
+        ((1, 3, 6, 530), 1, 5, 7),
+        ((1, 4, 3, 200), 5, 10, 40),  # d > 16: narrower chunks, three windows apart at d >= t_x
+        ((2, 3, 4, 150), 21, 21, 150),
+        ((1, 9, 7, 5), 64, 21, 2),
+    ],
+)
+def test_kernel_chunks_and_wide_dilations(cuda, shape, cin, cout, dilation):
+    x, w, b, s, o = _inputs(shape[-1] + dilation, shape, cin, cout, cuda)
+    for fuse in (False, True):
+        kw = dict(dilation=dilation, scale=s, offset=o, fuse_affine=fuse)
+        got = conv_kernel.dilated_conv3d(x, w, b, **kw)
+        torch.cuda.synchronize()
+        expect = ref.dilated_conv3d(x, w, b, **kw)
+        assert float((got - expect).abs().max()) <= REL_TOL * float(expect.abs().max())
+
+
+def test_kernel_layout_is_the_wrappers(cuda):
+    """smem_bytes mirrors the layout K1 allocates (csrc/dilated_conv3d.cu)."""
+    lib = conv_kernel._kernel("halo")[0]
+    for cin, cout in itertools.product((1, 2, 5, 10, 18, 21, 33, 64, 100, 128), (5, 10, 18, 21)):
+        assert lib.repro_dilated_conv3d_smem_bytes(cin, cout) == conv_kernel.smem_bytes(cin, cout), (cin, cout)
+
+
+def test_ptxas_reports_no_spills(cuda):
+    """K1's and K2's every instantiated width fits its registers."""
+    from repro_torch.kernels import _build
+
+    _build.build_all(["dilated_conv3d", "megakernel"])
+    for name in ("dilated_conv3d", "megakernel"):
+        report = [line for line in _build.build_log(name).splitlines() if "spill" in line]
+        assert len(report) >= 4 and all("0 bytes spill stores, 0 bytes spill loads" in line for line in report), report
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     x, w, b, _, _ = _inputs(0, (1, 8, 8, 8), 5, 5, cuda)
     with pytest.raises(TypeError):
@@ -130,6 +183,14 @@ def _written(pln, i):
         (10, 50, (2, 1, 1), (2, 19, 24, 21), mk.SMEM_BUDGET),
         (18, 104, (1, 2, 1), (1, 20, 20, 20), 100_000),
         (21, 3, (1, 2, 4, 2, 1), (2, 19, 24, 21), 120_000),
+        # the odd shape, batch 2, plans forced to several segments
+        (5, 3, (1, 2, 4, 8, 16, 8, 4, 2, 1), (2, 10, 12, 14), 40_000),
+        (5, 3, (1, 2, 4, 8, 16, 8, 4, 2, 1), (2, 10, 12, 14), 20_000),
+        (10, 3, (1, 2, 4, 2, 1), (2, 10, 12, 14), 60_000),
+        (18, 104, (3, 1), (2, 10, 12, 14), mk.SMEM_BUDGET),
+        # rows longer than a warp's chunk, and a dilation past the extent
+        (5, 2, (1, 2, 1), (1, 6, 5, 300), mk.SMEM_BUDGET),
+        (21, 3, (16, 1), (1, 9, 10, 11), mk.SMEM_BUDGET),
     ],
 )
 def test_megakernel_segments_match_plain_version(cuda, channels, classes, dilations, shape, budget):
@@ -154,6 +215,42 @@ def test_megakernel_segments_match_plain_version(cuda, channels, classes, dilati
         assert err <= REL_TOL, (i, seg, err)
         act = torch.full_like(out, float("nan"))
         act[w] = out[w]
+
+
+@pytest.mark.parametrize("budget", [mk.SMEM_BUDGET, 200_000])
+def test_megakernel_takes_a_64_channel_input(cuda, budget):
+    """A 64-channel first layer (the planner's widest case) through K2,
+    segment by segment with NaN borders."""
+    cfg = meshnet.MeshNetConfig(in_channels=64, channels=21, num_classes=3, dilations=(1, 2))
+    params = _params_with_bn(cfg, 64, cuda)
+    shape = (2, 10, 12, 14)
+    pln = mk.plan_for_config(cfg, shape[1:], smem_budget=budget, batch=2)
+    x = torch.rand(shape + (64,), generator=torch.Generator().manual_seed(6)).to(cuda)
+    h = pln.segments[0].halo
+    act = torch.full((2,) + tuple(p + 2 * h for p in pln.padded(pln.segments[0])) + (64,), float("nan"), device=cuda)
+    act[:, h : h + shape[1], h : h + shape[2], h : h + shape[3]] = x
+    for i, seg in enumerate(pln.segments):
+        operands = ops.megakernel_operands(params, cfg, seg)
+        out = mk.run_segment(act, pln, i, *operands)
+        torch.cuda.synchronize()
+        w = _written(pln, i)
+        got, expect = out[w], ref.megakernel_segment(act, pln, i, *operands)[w]
+        assert torch.isfinite(got).all()
+        assert float((got - expect).abs().max()) <= REL_TOL * float(expect.abs().max()), (i, seg)
+        act = torch.full_like(out, float("nan"))
+        act[w] = out[w]
+
+
+@pytest.mark.parametrize("channels", [5, 10, 18, 21])
+def test_planner_occupancy_is_the_runtimes(cuda, channels):
+    """The planner's blocks an SM (shared memory, threads and its register
+    table) equal the occupancy calculator's for the built K2."""
+    cfg = meshnet.MeshNetConfig(channels=channels, num_classes=3)
+    segs = list(mk.plan_for_config(cfg, (256, 256, 256)).segments)
+    segs += [mk.Segment(1, (2,), channels, channels, t) for t in ((2, 2, 2), (8, 8, 64), (4, 4, 256))]
+    for seg in segs:
+        if mk._segment_smem_bytes(seg) <= mk.SMEM_BUDGET:
+            assert mk.blocks_per_sm(seg) == mk._blocks_per_sm(mk._segment_smem_bytes(seg), channels), seg
 
 
 def test_megakernel_forward_launches_once_a_segment(cuda):

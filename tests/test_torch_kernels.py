@@ -139,10 +139,33 @@ class TestDilatedConv3D:
             )
 
     def test_weights_fit_one_block_of_shared_memory(self):
-        # the widest hidden layer (21 -> 21) stages 47.6 KB of weights
-        assert conv_kernel.smem_bytes(21, 21) == (27 * 21 * 21 + 3 * 21) * 4
+        # the widest hidden layer (21 -> 21): 53.2 KB of weights at row
+        # stride 24, bias, scale and offset (63 -> 64 floats), and 4 warps'
+        # rings of 2 slots, each ceil4(160 x 21) + 4 floats (R = 4)
+        assert conv_kernel.smem_bytes(21, 21) == (27 * 21 * 24 + 64 + 4 * 2 * (160 * 21 + 4)) * 4
         assert conv_kernel.smem_bytes(21, 21) < conv_kernel.SMEM_LIMIT
         assert conv_kernel.smem_bytes(128, 21) > conv_kernel.SMEM_LIMIT
+
+    @pytest.mark.parametrize(
+        "cin,cout,warps,wb,floats",
+        [
+            # weights 27 Cin CP (CP = Cout rounded up to 4), bias, scale and
+            # offset (3 Cout rounded up to 4), then warps x 2 slots of
+            # ceil4(WB (Cin | 1)) + 4 floats, WB = 32 R + 32
+            (1, 5, 4, 288, 27 * 1 * 8 + 16 + 4 * 2 * (288 + 4)),  # 10,272 bytes
+            (5, 5, 4, 288, 27 * 5 * 8 + 16 + 4 * 2 * (1440 + 4)),  # 50,592 bytes
+            (5, 10, 4, 160, 27 * 5 * 12 + 32 + 4 * 2 * (800 + 4)),  # R = 4 from C = 10
+            (10, 10, 4, 160, 27 * 10 * 12 + 32 + 4 * 2 * (1760 + 4)),  # even Cin: stride 11
+            (18, 18, 4, 160, 27 * 18 * 20 + 56 + 4 * 2 * (3040 + 4)),
+            # 64 -> 21: one warp, and the box shrinks to what is left
+            (64, 21, 1, 127, 27 * 64 * 24 + 64 + 2 * (127 * 65 + 1 + 4)),
+        ],
+    )
+    def test_k1_layout_is_hand_counted(self, cin, cout, warps, wb, floats):
+        assert conv_kernel.k1_layout(cin, cout) == (warps, wb, floats)
+        assert conv_kernel.smem_bytes(cin, cout) == 4 * floats <= conv_kernel.SMEM_LIMIT
+        assert conv_kernel.voxels_per_lane(cout) == (8 if cout <= 5 else 4)
+        assert conv_kernel.rows_per_warp(cout) == (2 if cout <= 10 else 1)
 
 
 class TestFusedForward:

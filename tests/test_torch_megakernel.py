@@ -68,6 +68,14 @@ def _reference_plan(pln, budget):
     return ref_mk.MegakernelPlan(segments=segments, vol=pln.vol, vmem_budget=budget)
 
 
+def _plan(vol, *segments):
+    """A plan with the given segments, each (start, dilations, cin, C,
+    tile, fuse_head, classes): multi-layer segments that the time-priced
+    planner does not choose at these volumes (the byte-priced planner of
+    the first K2 did)."""
+    return mk.MegakernelPlan(tuple(mk.Segment(*s) for s in segments), tuple(vol))
+
+
 def _written(pln, i):
     o = pln.out_halo(i)
     return (slice(None),) + tuple(slice(o, o + p) for p in pln.padded(pln.segments[i])) + (slice(None),)
@@ -90,8 +98,10 @@ class TestPlanner:
 
     def test_buffer_sizes_shrink_to_the_tile(self):
         pln = mk.plan_for_config(meshnet.PAPER_MODELS["gwm_light"], PAPER_VOL)
-        assert len(pln.segments) > 1 and any(len(s.dilations) > 1 for s in pln.segments)
-        for seg in pln.segments:
+        deep = _plan(PAPER_VOL, (0, (1, 2), 1, 5, (16, 16, 20), False, 3), (2, (4, 8, 16, 8, 4), 5, 5, (8, 8, 8), False, 3),
+                     (7, (2, 1), 5, 5, (16, 16, 32), True, 3))
+        assert len(pln.segments) > 1 and any(len(s.dilations) > 1 for s in deep.segments)
+        for seg in pln.segments + deep.segments:
             sizes = seg.buffer_sizes()
             assert sizes[0] == tuple(t + 2 * seg.halo for t in seg.tile)
             for d, a, b in zip(seg.dilations, sizes, sizes[1:]):
@@ -104,11 +114,12 @@ class TestPlanner:
         pln = mk.plan_for_config(meshnet.PAPER_MODELS[name], PAPER_VOL, smem_budget=budget)
         for seg in pln.segments:
             assert mk._segment_smem_bytes(seg) <= budget
-            # what K2 allocates: the segment's parameters, then ping and pong
-            params, ping, pong = mk._smem_layout(seg)
-            hidden = [int(np.prod(s)) * seg.channels for s in seg.buffer_sizes()[1:-1]]
+            # what K2 allocates: the segment's parameters, ping and pong at
+            # the odd channel stride C | 1, then the first layer's ring
+            params, ping, pong, ring = mk._smem_layout(seg)
+            hidden = [int(np.prod(s)) * (seg.channels | 1) for s in seg.buffer_sizes()[1:-1]]
             assert ping == max(hidden[0::2], default=0) and pong == max(hidden[1::2], default=0)
-            assert mk._segment_smem_bytes(seg) == 4 * (params + ping + pong)
+            assert mk._segment_smem_bytes(seg) == 4 * (params + ping + pong + ring)
 
     @pytest.mark.parametrize("name", ["gwm_light", "brain_mask_fast"])
     def test_paper_volume_plans_fit_one_block(self, name):
@@ -129,7 +140,9 @@ class TestPlanner:
         pln = mk.plan_for_config(cfg, vol, batch=batch)
         cost, segments = mk._dp(cfg.dilations, cfg.in_channels, cfg.channels, cfg.num_classes, vol, mk.SMEM_BUDGET, batch)
         assert segments == pln.segments
-        assert pln.hbm_bytes(batch) == cost == traffic.meshnet_megakernel_bytes(cfg, vol, batch=batch)
+        # the DP minimises modeled time; the bytes it reports are the reference's formula
+        assert cost == pytest.approx(pln.modeled_ms(batch), rel=1e-12)
+        assert pln.hbm_bytes(batch) == traffic.meshnet_megakernel_bytes(cfg, vol, batch=batch)
         # the reference's formula on the same segments (megakernel.py:176-269)
         assert pln.hbm_bytes(batch) == _reference_plan(pln, mk.SMEM_BUDGET).hbm_bytes(batch=batch)
         assert pln.hbm_bytes(batch) == mk._input_pad_bytes(pln.segments[0], vol, batch) + sum(
@@ -153,39 +166,106 @@ class TestPlanner:
                     seg = mk.Segment(i, cfg.dilations[i:j], cfg.in_channels if i == 0 else cfg.channels,
                                      cfg.channels, tile, j == n, cfg.num_classes)
                     if mk._segment_smem_bytes(seg) <= budget:
-                        c = mk._segment_hbm_bytes(seg, vol, batch)
-                        costs.append(c + (mk._input_pad_bytes(seg, vol, batch) if i == 0 else 0))
+                        c = float(mk._segment_modeled_ms(seg, vol, batch))
+                        costs.append(c + (float(mk._input_pad_ms(seg, vol, batch)) if i == 0 else 0.0))
                 total += min(costs, default=float("inf"))
             best = min(best, total)
         pln = mk.plan_for_config(cfg, vol, smem_budget=budget, batch=batch)
-        assert pln.hbm_bytes(batch) == best
+        assert pln.modeled_ms(batch) == pytest.approx(best, rel=1e-12)
 
     def test_operations_count_the_halo_recompute(self):
         # one-layer segments whose tiles are the volume recompute nothing
         cfg = meshnet.MeshNetConfig(channels=10, num_classes=2, dilations=(1, 2, 4))
         vol = (10, 12, 14)
-        pln = mk.plan_for_config(cfg, vol, smem_budget=20_000)
+        pln = _plan(vol, (0, (1,), 1, 10, vol, False, 2), (1, (2,), 10, 10, vol, False, 2), (2, (4,), 10, 10, vol, True, 2))
         assert all(len(s.dilations) == 1 and s.tile == vol for s in pln.segments)
         v = int(np.prod(vol))
         assert pln.operations() == v * 27 * (1 * 10 + 10 * 10 * 2) + v * 10 * 2
         assert pln.operations(batch=3) == 3 * pln.operations()
         # a two-layer segment recomputes its first layer's halo
-        two = mk.plan_for_config(cfg, vol)
+        two = _plan(vol, (0, (1, 2), 1, 10, vol, False, 2), (2, (4,), 10, 10, vol, True, 2))
         assert any(len(s.dilations) > 1 for s in two.segments)
         assert two.operations() > pln.operations()
 
     @pytest.mark.parametrize(
         "cfg,budget,binding,need",
         [
-            # layer 2 carries the 104-class head: 27*21*21 + 3*21 + 21*104 + 104 floats
-            (meshnet.MeshNetConfig(channels=21, num_classes=104, dilations=(1, 2, 4)), 50_000, 2, 57_032),
-            # a 64-channel input makes layer 0 the widest
-            (meshnet.MeshNetConfig(in_channels=64, channels=21, dilations=(1, 2)), 100_000, 0, 145_404),
+            # layer 2 carries the 104-class head, alone at tile (2, 2, 2): weights
+            # 27*21*24 (row stride 21 -> 24), bias/scale/offset 3*21 -> 64, head
+            # 21*104 + 104 = 2,288, and the ring of the 4 warps that have rows
+            # (2 z rows x 2 rows): 4 x 2 slots of ceil4((2 + 2*min(4, 2)) x 21)
+            # + 4 = 132 floats; 17,016 floats
+            (meshnet.MeshNetConfig(channels=21, num_classes=104, dilations=(1, 2, 4)), 50_000, 2, 68_064),
+            # a 64-channel input makes layer 0 the widest: 27*64*24 + 64 floats,
+            # and a ring of 4 x 2 slots of ceil4((2 + 2*1) x 65) + 4 = 264 floats;
+            # 43,648 floats
+            (meshnet.MeshNetConfig(in_channels=64, channels=21, dilations=(1, 2)), 100_000, 0, 174_592),
         ],
     )
     def test_infeasible_budget_names_the_binding_layer(self, cfg, budget, binding, need):
         with pytest.raises(ValueError, match=rf"infeasible: layer {binding} .* needs {need} bytes .* {budget}-byte budget"):
             mk.plan_for_config(cfg, (16, 16, 16), smem_budget=budget)
+
+    @pytest.mark.parametrize(
+        "blocks,per_sm,factor",
+        [
+            (264, 2, 1.0),  # exactly one wave of 132 SMs x 2
+            (528, 2, 1.0),
+            (265, 2, 2 / (265 / 264)),  # one block over: a second, nearly empty wave
+            (132, 1, 1.0),
+            (66, 1, 2.0),  # half the SMs idle
+            (1024, 8, 1 / (1024 / 1056)),
+        ],
+    )
+    def test_wave_quantisation(self, blocks, per_sm, factor):
+        assert mk._wave_quantisation(blocks, per_sm) == pytest.approx(factor, rel=1e-12)
+
+    def test_blocks_per_sm_take_the_scarcest_resource(self):
+        # shared memory: 228 KB an SM, 1 KB reserved a block
+        assert mk._blocks_per_sm(96_540, 5) == min(2, self._by_regs(5))  # 233,472 // 97,564
+        assert mk._blocks_per_sm(150_000, 5) == 1
+        # registers: a block of 128 threads at REGISTERS[C] rounded up to 8 each
+        for c in (5, 10, 18, 21):
+            assert mk._blocks_per_sm(1_000, c) == min(16, self._by_regs(c))
+
+    @staticmethod
+    def _by_regs(c):
+        return 65_536 // (-(-mk.REGISTERS[c] // 8) * 8 * 128)
+
+    @pytest.mark.parametrize("name", ["gwm_light", "brain_mask_fast"])
+    def test_paper_volume_plan_fills_the_sms(self, name):
+        pln = mk.plan_for_config(meshnet.PAPER_MODELS[name], PAPER_VOL)
+        for i, seg in enumerate(pln.segments):
+            blocks = pln.segment_blocks(i)
+            assert blocks >= mk.SMS, (i, seg, blocks)
+            assert blocks == int(np.prod([-(-v // t) for v, t in zip(PAPER_VOL, seg.tile)]))
+            per_sm = mk._blocks_per_sm(mk._segment_smem_bytes(seg), seg.channels)
+            assert pln.segment_waves(i) == pytest.approx(blocks / (mk.SMS * per_sm))
+        assert pln.modeled_ms() == pytest.approx(
+            float(mk._input_pad_ms(pln.segments[0], PAPER_VOL)) + sum(pln.segment_modeled_ms(i) for i in range(len(pln.segments)))
+        )
+
+    def test_segment_layout_is_hand_counted(self):
+        # two layers 1 -> 5 -> 5 (d 1, 2) with the 3-class head, tile (4, 4, 8)
+        seg = mk.Segment(0, (1, 2), 1, 5, (4, 4, 8), True, 3)
+        # weights at row stride 8; bias, scale, offset 15 -> 16; the head 18 -> 20
+        params = 27 * 1 * 8 + 16 + 27 * 5 * 8 + 16 + 20
+        ping = (4 + 4) * (4 + 4) * (8 + 4) * 5  # layer 0's output, the tile grown by 2 a side, stride 5
+        # layer 0's region: 8 z rows x 4 groups of 2 rows x 1 chunk = 32 items, so
+        # all 4 warps stage; slots of ceil4((12 + 2 d) x (1 | 1)) + 4 floats
+        ring = 4 * 2 * (16 + 4)
+        assert mk._smem_layout(seg) == (params, ping, 0, ring)
+        assert mk._segment_smem_bytes(seg) == 4 * (1348 + 3840 + 160) == 21_392
+        # one 5 -> 5 layer at d = 16 over a 256-wide tile: boxes of 256 + 32 positions
+        one = mk.Segment(4, (16,), 5, 5, (16, 16, 256))
+        assert mk._smem_layout(one) == (27 * 5 * 8 + 16, 0, 0, 4 * 2 * (288 * 5 + 4))
+        # an even width pads the hidden stride to odd: C = 10 -> 11
+        wide = mk.Segment(3, (1, 1), 10, 10, (2, 2, 2))
+        assert mk._smem_layout(wide) == (2 * (27 * 10 * 12 + 32), 4 * 4 * 4 * 11, 0, 4 * 2 * (6 * 11 + 2 + 4))
+        # a 2^3 tile alone: 2 z rows x 1 group of 2 rows, so two warps stage
+        assert mk._smem_layout(mk.Segment(3, (1,), 10, 10, (2, 2, 2)))[3] == 2 * 2 * (4 * 11 + 4)
+        assert [mk._row_groups(n, d, m) for n, d, m in ((256, 16, 2), (16, 16, 2), (12, 4, 2), (14, 16, 1))] == [
+            128, 16, 8, 14]
 
     def test_plan_is_memoised_and_fp32_only(self):
         cfg = meshnet.PAPER_MODELS["gwm_light"]
@@ -230,7 +310,8 @@ class TestParity:
         cfg = _port_cfg(ref_cfg)
         tree = _np_params(ref_cfg, seed=7)
         x = np.random.default_rng(8).standard_normal(BATCHED_ODD + (1,)).astype(np.float32)
-        pln = mk.plan_for_config(cfg, BATCHED_ODD[1:], smem_budget=40_000, batch=2)
+        pln = _plan(BATCHED_ODD[1:], (0, (1, 2), 1, 5, (5, 6, 14), False, 3), (2, (4,), 5, 5, (10, 20, 14), False, 3),
+                    (3, (2, 1), 5, 5, (10, 6, 14), True, 3))
         assert len(pln.segments) == 3
         assert any(t < 8 or t % 8 for s in pln.segments for t in s.tile)
         rpln = _reference_plan(pln, 40_000)
@@ -281,7 +362,7 @@ class TestParity:
     def test_wrapper_rejects_bad_operands(self):
         cfg = meshnet.MeshNetConfig(dilations=(1, 2, 4))
         params = bridge.params_from_numpy(_np_params(cfg, seed=11), "cpu")
-        pln = mk.plan_for_config(cfg, ODD_SHAPE[1:], smem_budget=40_000)
+        pln = _plan(ODD_SHAPE[1:], (0, (1, 2), 1, 5, (5, 6, 14), False, 3), (2, (4,), 5, 5, (10, 12, 14), True, 3))
         layers, head = ops.megakernel_operands(params, cfg, pln.segments[0])
         h = pln.segments[0].halo
         x = torch.zeros((1,) + tuple(p + 2 * h for p in pln.padded(pln.segments[0])) + (1,))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segmentation, training and LM-serving main
-paths on one CUDA card.
+paths on one CUDA card, and segmentation's sub-volume mode and bf16 and
+int8w policies.
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # tiny shapes, plain paths, CPU
@@ -12,8 +13,9 @@ training path whose hard Dice metric and held-out scores go through K3
 (the per-class Dice count kernel, one launch per score); and LM serving
 (LMEngine at TinyLlama-1.1B's full width), whose every attention layer of
 every decode step is one launch of K4 (decode attention). K5 (the
-27-view conv) computes K1's function and checks it. Phases, each printed
-on lines of its own:
+27-view conv) computes K1's function and checks it. At the bf16 and
+int8w policies ``cuda_fused`` launches K1r (K1 at reduced widths) a
+layer. Phases, each printed on lines of its own:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds every kernel source of the port, all at once,
@@ -103,14 +105,44 @@ on lines of its own:
                 served shape (kernel, plain, SDPA: device time per call
                 with a cold L2; the bound), a decode step at 4 slots, one
                 step under torch.profiler
-9. kernels  one JSON line describing every ported kernel (K1-K5)
-10. ok      the last line, {"ok": true, "device": {...}}
+9. reduced and sub-volume (segmentation, gwm_light with brain_mask_fast):
+            9a  K1r against its plain version on the card, bf16 and int8
+                weights, Cout 5/10/18/21, Cin 1/5/64, d 1/3/16/40 at
+                (2, 10, 12, 14), and three larger shapes: within one bf16
+                step (2^-8) of the layer's largest magnitude;
+            9b  both models under cuda_fused with meshnet.init's weights:
+                at the reference's shape (1, 10, 12, 14) its gates, bf16
+                within 1e-3 and int8w within 2e-2 of the plain forward at
+                their policy and bf16 within 1e-2 of fp32; at 256^3 bf16
+                within 1e-2 and int8w within 2e-2 of the plain forward,
+                relative to the largest logit; the gaps to fp32 (K1r's and
+                the plain forward's) and the argmax agreement printed;
+            9c  main paths, every count set to 0 just before and read just
+                after: submit in mode subvolume (cube 64, overlap 46) under
+                cuda_fused, K1 exactly 9 x (1 + cubes of the crop), and
+                under cuda_megakernel, K2 exactly the mask plan's segments
+                + cubes x the cube plan's; each segmentation agreeing with
+                executor torch's in the same mode on >= 99.99 % of voxels
+                and with mode full on every voxel at least the overlap (the
+                receptive-field radius) inside the volume, the whole
+                volume's agreement printed; one bf16 and one int8w
+                request under auto, K1r exactly 18 each and K1 never; F1:
+                an engine whose budget forces pick_mode to subvolume serves
+                a 256^3 volume (K1 9 x 64);
+            9d  CUDA-event medians of K1r per layer at bf16 and int8w at
+                256^3 (kernel, plain, F.conv3d at bf16, the bound: bf16
+                tensor-core operations or 2-byte activations, and the fp32
+                CUDA-core time of its operations); the whole forwards at
+                fp32, bf16 and int8w under cuda_fused
+10. kernels one JSON line describing every ported kernel (K1-K5, K1r)
+11. ok      the last line, {"ok": true, "device": {...}}
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line. Without a CUDA device (and without --cpu-rehearsal) it exits 1.
---cpu-rehearsal runs phases 1, 4, 5, 7b, 7c and 8c (TinyLlama's smoke
-config) at a tiny size on the CPU with the plain versions, to find wrong
-paths and shapes without a card; it never prints the ok line.
+--cpu-rehearsal runs phases 1, 4, 5, 7b, 7c, 8c (TinyLlama's smoke
+config), 9b and 9c (cube 8, overlap 4) at a tiny size on the CPU with
+the plain versions, to find wrong paths and shapes without a card; it
+never prints the ok line.
 """
 
 from __future__ import annotations
@@ -136,10 +168,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch import synchronize, tree  # noqa: E402
-from repro_torch.core import conform, meshnet  # noqa: E402
+from repro_torch.core import conform, executors, meshnet  # noqa: E402
 from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
 from repro_torch.data import mri  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, quantize, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as k4  # noqa: E402
 from repro_torch.kernels import dice as k3  # noqa: E402
 from repro_torch.kernels import dilated_conv3d as k1  # noqa: E402
@@ -147,6 +179,7 @@ from repro_torch.kernels import megakernel as k2  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving.engine import LMEngine, Request, SegmentationEngine  # noqa: E402
+from repro_torch.telemetry.budget import MemoryBudget  # noqa: E402
 from repro_torch.training import checkpoint, losses, optimizer, trainer  # noqa: E402
 
 KERNEL_REL_TOL = 5e-5
@@ -471,8 +504,10 @@ def serve_path(engine, vols, plain, executor, expect_exec, per_request) -> dict:
     return counts
 
 
-def phase_serve(dev, size: int) -> dict:
-    print(f"== phase 5: serve 3 requests at {size}^3 through SegmentationEngine.submit, once per kernel path")
+def served_models(dev, size: int):
+    """The served configuration of phases 5 and 9c: gwm_light with
+    brain_mask_fast as the crop model (random weights from SEED + 5, BN
+    statistics too), three raw volumes (one non-cubic), and the engine."""
     cfg = meshnet.PAPER_MODELS["gwm_light"]
     mcfg = meshnet.PAPER_MODELS["brain_mask_fast"]
     gen = torch.Generator().manual_seed(SEED + 5)
@@ -487,6 +522,13 @@ def phase_serve(dev, size: int) -> dict:
         mask_model=(mparams, mcfg),
         device=dev,
     )
+    return cfg, mcfg, params, mparams, vols, engine
+
+
+def phase_serve(dev, size: int) -> dict:
+    print(f"== phase 5: serve 3 requests at {size}^3 through SegmentationEngine.submit, once per kernel path")
+    cfg, mcfg, _, _, vols, engine = served_models(dev, size)
+    shape = (size,) * 3
     plain = [engine.submit(v, executor="torch") for v in vols]
     for i, res in enumerate(plain):
         check(res.record.status == "ok" and res.record.executor == "torch", f"plain-path request {i}")
@@ -1195,7 +1237,272 @@ def phase_lm(dev, card: str, rehearsal: bool) -> dict:
     return out
 
 
-def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err, k4_err, k4_row, views) -> dict:
+# ------------------------------------- phase 9: sub-volume, bf16, int8w ---
+
+K1R_STEP = 2.0**-8  # one bf16 step at the layer's largest magnitude
+BF16_GATE = 1e-2  # bf16 logits against fp32 (tests/test_precision.py:60-70)
+BF16_BACKENDS_GATE = 1e-3  # bf16 logits across backends (tests/test_precision.py:85)
+INT8W_GATE = 2e-2  # int8w logits across backends (tests/test_precision.py:112)
+ODD_SHAPE = (1, 10, 12, 14)  # the reference's precision tests' shape (tests/test_precision.py:44)
+CUBE, OVERLAP = 64, 46  # the pipeline's defaults: overlap = MeshNet's receptive-field radius
+BF16_TC_PEAK = 989e12  # dense bf16 on the H100 SXM's tensor cores (NVIDIA data sheet)
+
+
+def reduced_inputs(gen, shape, cin, cout, w_int8: bool, device):
+    """A reduced-precision layer's operands: a post-ReLU bf16 input, bf16
+    weights or their int8 codes (the dequant scale folded into scale),
+    fp32 bias, scale and offset."""
+    x, w, b, s, o = conv_inputs(gen, shape, cin, cout, "cpu")
+    x = torch.relu(x).to(torch.bfloat16)
+    if w_int8:
+        w, wscale = quantize.quantize_symmetric(w)
+        s = s * wscale
+    else:
+        w = w.to(torch.bfloat16)
+    return [t.to(device) for t in (x, w, b, s, o)]
+
+
+def k1r_work(shape, cin, cout, dilation, weight_bytes) -> tuple[int, int]:
+    """(operations, bytes) of one K1r layer: K1's operations; activations
+    read and written at 2 bytes an element, the weights at their width,
+    bias, scale and offset at 4."""
+    ops_, _ = k1_work(shape, cin, cout, dilation)
+    voxels = math.prod(shape)
+    return ops_, 2 * voxels * (cin + cout) + 27 * cin * cout * weight_bytes + 12 * cout
+
+
+def phase_reduced_parity(dev) -> float:
+    print("== phase 9a: K1r (bf16 activations, bf16 or int8 weights) against its plain version (card)")
+    gen = torch.Generator().manual_seed(SEED + 90)
+    worst = 0.0
+    for cout, cin, d, w_int8 in itertools.product((5, 10, 18, 21), (1, 5, 64), (1, 3, 16, 40), (False, True)):
+        x, w, b, s, o = reduced_inputs(gen, (2, 10, 12, 14), cin, cout, w_int8, dev)
+        kw = dict(dilation=d, scale=s, offset=o, fuse_affine=True)
+        got = k1.dilated_conv3d(x, w, b, **kw)
+        torch.cuda.synchronize()
+        expect = ref.dilated_conv3d(x, w, b, **kw)
+        err = float((got.float() - expect.float()).abs().max())
+        limit = K1R_STEP * float(expect.float().abs().max())
+        check(got.dtype == torch.bfloat16, "K1r writes bf16")
+        check(err <= limit, f"K1r {cin}->{cout} d={d} int8={w_int8}: max_abs_err {err} > {limit}")
+        worst = max(worst, err)
+    print(f"K1r: 96 cases (Cout 5/10/18/21, Cin 1/5/64, d 1/3/16/40, bf16 and int8 weights) at (2, 10, 12, 14): "
+          f"worst max_abs_err {worst:.4e}, each within one bf16 step (2^-8) of the layer's largest magnitude")
+    for shape, cin, cout, d in (((1, 37, 45, 300), 5, 5, 2), ((1, 64, 64, 64), 5, 5, 16), ((1, 30, 30, 30), 64, 21, 3)):
+        for w_int8 in (False, True):
+            x, w, b, s, o = reduced_inputs(gen, shape, cin, cout, w_int8, dev)
+            kw = dict(dilation=d, scale=s, offset=o, fuse_affine=True)
+            got = k1.dilated_conv3d(x, w, b, **kw)
+            torch.cuda.synchronize()
+            expect = ref.dilated_conv3d(x, w, b, **kw)
+            err = float((got.float() - expect.float()).abs().max())
+            check(err <= K1R_STEP * float(expect.float().abs().max()), f"K1r {shape} {cin}->{cout} d={d}: {err}")
+            print(f"K1r {shape} {cin}->{cout} d={d} int8={w_int8}: max_abs_err {err:.4e}")
+            worst = max(worst, err)
+    return worst
+
+
+def logit_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(max |a - b| in fp32, share of voxels whose argmax agrees)."""
+    return float((a.float() - b.float()).abs().max()), float((a.float().argmax(-1) == b.float().argmax(-1)).float().mean())
+
+
+def phase_reduced_forward(dev, size: int) -> None:
+    print(f"== phase 9b: the served models' forwards at bf16 and int8w, cuda_fused against the plain path, "
+          f"at the reference's shape {ODD_SHAPE} and at {size}^3")
+    gen = torch.Generator().manual_seed(SEED + 91)
+    vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
+    x = conform.conform(vol, (size,) * 3)[None]
+    odd = mri.generate(gen, mri.SyntheticMRIConfig(shape=ODD_SHAPE[1:]), device=dev)[0][None]
+    for name in ("gwm_light", "brain_mask_fast"):
+        cfg = meshnet.PAPER_MODELS[name]
+        # meshnet.init's weights and BatchNorm, as the reference's precision tests
+        params = meshnet.init(cfg, generator=gen, device=dev)
+        # the reference's gates where it states them (tests/test_precision.py:
+        # bf16 within 1e-2 of fp32; backends within 1e-3 at bf16 and 2e-2
+        # at int8w of the plain forward), absolute
+        o32 = executors.apply("cuda_fused", params, odd, cfg)
+        for precision, gate in (("bf16", BF16_BACKENDS_GATE), ("int8w", INT8W_GATE)):
+            got = executors.apply("cuda_fused", params, odd, cfg, precision=precision)
+            plain = executors.apply("torch", params, odd, cfg, precision=precision)
+            err, _ = logit_gap(got, plain)
+            err32, _ = logit_gap(got, o32)
+            print(f"{name} {precision} at {ODD_SHAPE}: cuda_fused vs plain max_abs {err:.4e}; vs fp32 max_abs {err32:.4e}")
+            check(err <= gate, f"{name} {precision} at {ODD_SHAPE}: cuda_fused vs plain {err} > {gate}")
+            if precision == "bf16":
+                check(err32 <= BF16_GATE, f"{name} bf16 at {ODD_SHAPE}: vs fp32 {err32} > {BF16_GATE}")
+        # at size^3: K1r's forward against the plain forward at its policy,
+        # relative to the largest logit (bf16 steps grow with the logits;
+        # both round fp32 sums taken in their own order at every layer)
+        fp32 = executors.apply("cuda_fused", params, x, cfg)
+        for precision, gate in (("bf16", BF16_GATE), ("int8w", INT8W_GATE)):
+            got = executors.apply("cuda_fused", params, x, cfg, precision=precision)
+            check(got.dtype == torch.bfloat16 and tuple(got.shape) == (1,) + (size,) * 3 + (cfg.num_classes,),
+                  f"{name} {precision} logits {got.dtype} {tuple(got.shape)}")
+            check(bool(torch.isfinite(got.float()).all()), f"{name} {precision} logits are finite")
+            plain = executors.apply("torch", params, x, cfg, precision=precision)
+            err, agree = logit_gap(got, plain)
+            err32, agree32 = logit_gap(got, fp32)
+            plain32, plain_agree32 = logit_gap(plain, fp32)
+            top = float(plain.float().abs().max())
+            print(f"{name} {precision} at {size}^3: cuda_fused vs plain {precision} max_abs {err:.4e} "
+                  f"(largest logit {top:.4f}, argmax agrees {agree:.6%}); vs fp32 max_abs {err32:.4e} "
+                  f"(argmax agrees {agree32:.6%}); the plain {precision} forward vs fp32 max_abs {plain32:.4e} "
+                  f"(argmax agrees {plain_agree32:.6%})")
+            check(err <= gate * top, f"{name} {precision} at {size}^3: cuda_fused vs plain {err} > {gate} x {top}")
+            del got, plain
+        del fp32
+
+
+def count_launches(dev, fn):
+    """(result, {K1, K1r, K2} launches) of ``fn()``: every count set to 0
+    just before and read just after (a main path)."""
+    synchronize(dev)
+    k1.launches = k1.reduced_launches = k2.launches = 0
+    res = fn()
+    return res, {"K1": k1.launches, "K1r": k1.reduced_launches, "K2": k2.launches}
+
+
+def stages(rec) -> str:
+    st = rec.times
+    return (f"preprocessing {st.preprocessing:.4f} cropping {st.cropping:.4f} inference {st.inference:.4f} "
+            f"postprocessing {st.postprocessing:.4f} total {st.total():.4f} s")
+
+
+def phase_subvolume(dev, size: int, rehearsal: bool) -> dict:
+    cube, overlap = (8, 4) if rehearsal else (CUBE, OVERLAP)
+    print(f"== phase 9c: SegmentationEngine.submit in mode subvolume (cube {cube}, overlap {overlap}) at {size}^3, "
+          "then bf16 and int8w requests, then the F1 probe")
+    cfg, mcfg, params, mparams, vols, _ = served_models(dev, size)
+    shape = (size,) * 3
+    engine = SegmentationEngine(
+        params, PipelineConfig(name="gwm_light", model=cfg, volume_shape=shape, use_cropping=True, cube=cube, overlap=overlap),
+        mask_model=(mparams, mcfg), device=dev,
+    )
+    cuda = dev.type == "cuda"
+    vol = vols[0]
+    full = engine.submit(vol, mode="full")
+    plain = engine.submit(vol, mode="subvolume", executor="torch")
+    check(full.record.status == "ok" and plain.record.status == "ok", "full-mode and plain sub-volume requests")
+    out = {}
+    for executor in (None, "cuda_megakernel"):
+        if not cuda and executor is not None:
+            continue
+        res, counts = count_launches(dev, lambda: engine.submit(vol, mode="subvolume", executor=executor))
+        rec = res.record
+        ncubes = math.prod(-(-s // cube) for s in rec.crop_size)
+        name = rec.executor
+        print(f"subvolume {name}: status {rec.status} crop {rec.crop_size} cubes {ncubes} launches {counts}; "
+              f"modeled bytes {rec.hbm_bytes_modeled}; stages {stages(rec)}")
+        check(rec.status == "ok" and rec.mode == "subvolume", f"subvolume request under {name}: {rec.status} {rec.fail_type}")
+        if name == "cuda_fused":
+            expect = {"K1": 9 * (1 + ncubes), "K1r": 0, "K2": 0}
+        elif name == "cuda_megakernel":
+            read = (cube + 2 * overlap,) * 3
+            segs = len(k2.plan_for_config(cfg, read).segments)
+            expect = {"K1": 0, "K1r": 0, "K2": len(k2.plan_for_config(mcfg, shape).segments) + ncubes * segs}
+        else:
+            expect = {"K1": 0, "K1r": 0, "K2": 0}
+        check(counts == expect, f"subvolume {name} launches {counts}, expected {expect}")
+        differ = res.segmentation != plain.segmentation
+        agree = 1.0 - float(differ.float().mean())
+        print(f"subvolume {name} vs subvolume torch: {int(differ.sum())} voxels differ ({agree:.6%} agree)")
+        check(agree >= ARGMAX_AGREE, f"subvolume {name} agreement with the plain path {agree} < {ARGMAX_AGREE}")
+        # Against mode full: a cube zero-pads only at its own faces, where
+        # the full forward zero-pads at every layer, so within the receptive
+        # field of the volume's faces the two may part (the reference's
+        # patching.py says so); farther in, the trimmed merge is exact.
+        differ = res.segmentation != full.segmentation
+        agree = 1.0 - float(differ.float().mean())
+        r = min(overlap, size // 2 - 1)
+        inner = 1.0 - float(differ[r:-r, r:-r, r:-r].float().mean())
+        print(f"subvolume {name} vs mode full: {int(differ.sum())} voxels differ ({agree:.6%} agree); "
+              f"{inner:.6%} agree at least {r} voxels from the volume's faces")
+        if overlap >= sum(cfg.dilations):  # the receptive-field radius
+            check(inner == 1.0, f"subvolume {name} differs from mode full {r} or more voxels inside the volume")
+        out[name] = counts
+    for precision in ("bf16", "int8w"):
+        res, counts = count_launches(dev, lambda: engine.submit(vol, precision=precision))
+        rec = res.record
+        print(f"{precision} request (auto): status {rec.status} mode {rec.mode} executor {rec.executor} "
+              f"launches {counts}; params bytes {rec.params_bytes}; modeled bytes {rec.hbm_bytes_modeled}; "
+              f"stages {stages(rec)}")
+        check(rec.status == "ok" and rec.precision == precision, f"{precision} request: {rec.status} {rec.fail_type}")
+        expect = {"K1": 0, "K1r": 2 * len(cfg.dilations) if cuda else 0, "K2": 0}
+        check(counts == expect, f"{precision} request launches {counts}, expected {expect}")
+        agree = 1.0 - float((res.segmentation != full.segmentation).float().mean())
+        print(f"{precision} request vs the fp32 request: {agree:.6%} of voxels agree")
+        out[precision] = counts
+    out["reduced"] = {"K1r": out["bf16"]["K1r"] + out["int8w"]["K1r"]}
+    # F1: a budget under the streaming need at this size (two live
+    # activations and the logits) and over a cube's, with no crop model
+    # (its full-volume forward is charged whole).
+    need_stream = math.prod(shape) * (2 * cfg.channels + cfg.num_classes) * 4
+    need_cube = (cube + 2 * overlap) ** 3 * (2 * cfg.channels + cfg.num_classes) * 4
+    budget = MemoryBudget((need_stream + need_cube) // 2, name="f1_probe")
+    tight = SegmentationEngine(
+        params, PipelineConfig(name="gwm_light", model=cfg, volume_shape=shape, cube=cube, overlap=overlap),
+        budget=budget, device=dev,
+    )
+    mode = tight.pick_mode(shape)
+    res, counts = count_launches(dev, lambda: tight.submit(vol))
+    rec = res.record
+    print(f"F1 probe: budget {budget.bytes_limit} bytes (streaming needs {need_stream}, a cube {need_cube}); "
+          f"pick_mode {mode}; status {rec.status} mode {rec.mode} launches {counts}; stages {stages(rec)}")
+    check(mode == "subvolume" and rec.status == "ok" and rec.mode == "subvolume", f"F1 probe: {mode} {rec.status} {rec.fail_type}")
+    ncubes = math.prod(-(-s // cube) for s in shape)
+    check(counts == {"K1": 9 * ncubes if cuda else 0, "K1r": 0, "K2": 0}, f"F1 probe launches {counts}")
+    return out
+
+
+def phase_reduced_times(dev, card: str, size: int) -> list[dict]:
+    print(f"== phase 9d: K1r times at the main path's shapes ({size}^3, card: {card})")
+    _, peak_fp32, peak_bw = peaks_for(card)
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    per_forward = {}
+    cin = cfg.in_channels
+    for d in cfg.dilations:
+        per_forward[(d, cin)] = per_forward.get((d, cin), 0) + 1
+        cin = cfg.channels
+    gen = torch.Generator().manual_seed(SEED + 93)
+    rows = []
+    shape = (1, size, size, size)
+    for (d, cin), count in sorted(per_forward.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+        cout = cfg.channels
+        for w_int8 in (False, True):
+            x, w, b, s, o = reduced_inputs(gen, shape, cin, cout, w_int8, dev)
+            kw = dict(dilation=d, scale=s, offset=o, fuse_affine=True)
+            kernel_ms = time_ms(lambda: k1.dilated_conv3d(x, w, b, **kw))
+            plain_ms = time_ms(lambda: ref.dilated_conv3d(x, w, b, **kw), runs=5)
+            x_ncdhw = x.permute(0, 4, 1, 2, 3)  # a view: the data stays channels-last
+            w_oidhw = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()  # int8 codes are exact in bf16
+            b16 = b.to(torch.bfloat16)
+            library_ms = time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, b16, padding=d, dilation=d))
+            ops_, bytes_ = k1r_work(shape, cin, cout, d, 1 if w_int8 else 2)
+            t_ops, t_bytes = ops_ / BF16_TC_PEAK * 1e3, bytes_ / peak_bw * 1e3
+            bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            row = dict(
+                dilation=d, cin=cin, cout=cout, weights="int8" if w_int8 else "bf16", launches_per_forward=count,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / kernel_ms, fp32_cuda_core_ms=ops_ / peak_fp32 * 1e3,
+                blocks_per_sm=k1.lp_blocks_per_sm(cin, cout, w_int8), ops=ops_, bytes=bytes_,
+            )
+            print("times K1r " + json.dumps(row))
+            rows.append(row)
+            del x
+    params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
+    vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
+    xs = conform.conform(vol, (size,) * 3)[None]
+    for precision in ("fp32", "bf16", "int8w"):
+        prepared = quantize.prepare_params(params, cfg, precision)
+        ms = time_ms(lambda: ops.meshnet_apply(prepared, xs, cfg, precision=precision))
+        print(f"times forward cuda_fused {precision}: {ms:.4f} ms (one gwm_light forward at {size}^3, params prepared)")
+    print_clocks()
+    return rows
+
+
+def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err, k4_err, k4_row, views,
+                 k1r_rows, k1r_err) -> dict:
     """Per-forward numbers of K1, K2 and K5: one gwm_light forward at 256^3,
     9 launches of K1 or K5 or one launch of K2 per segment of the plan; K3's
     per count of one 256^3 3-class pair; K4's per launch at the served
@@ -1209,6 +1516,11 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
 
     t1, b1, by1 = totals(rows, lambda r: r["launches_per_forward"])
     t2, b2, by2 = totals(seg_rows)
+    per_layer = lambda r: r["launches_per_forward"]  # noqa: E731
+    r16 = [r for r in k1r_rows if r["weights"] == "bf16"]
+    r8 = [r for r in k1r_rows if r["weights"] == "int8"]
+    t16, b16, by16 = totals(r16, per_layer)
+    t8, b8, _ = totals(r8, per_layer)
     return {
         "kernels": [
             {
@@ -1302,6 +1614,28 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
                        "F.conv3d times); launches from K5's path as K1's oracle over one served forward, "
                        "bit-equal to K1 at every layer",
             },
+            {
+                "name": "dilated_conv3d_lp",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/dilated_conv3d_lp.cu",
+                "replaces": "src/repro/kernels/dilated_conv3d.py:62",
+                "tpu_kernel": "src/repro/kernels/dilated_conv3d.py::_halo_kernel (bf16 and int8w policies)",
+                "launches": launches["subvolume"]["reduced"]["K1r"],
+                "max_abs_err": k1r_err,
+                "ms": t16["kernel_ms"],
+                "plain_ms": t16["plain_ms"],
+                "bound_ms": b16,
+                "bound_by": by16,
+                "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in r16),
+                "library": "F.conv3d on bf16 operands (cuDNN), conv + bias only",
+                "fp32_cuda_core_ms": sum(r["fp32_cuda_core_ms"] * r["launches_per_forward"] for r in r16),
+                "ms_int8w": t8["kernel_ms"],
+                "plain_ms_int8w": t8["plain_ms"],
+                "bound_ms_int8w": b8,
+                "per": "one gwm_light forward at 256^3 at bf16 (9 launches; *_int8w the same with int8 weights); "
+                       "bound: operations over the bf16 tensor-core peak or bytes at 2 B an activation over the "
+                       "memory rate; launches from one bf16 and one int8w request served under auto (18 each)",
+            },
         ]
     }
 
@@ -1331,6 +1665,8 @@ def main(argv=None) -> int:
         phase_train_step_parity(dev, 16)
         phase_train(dev, size)
         phase_lm(dev, card, rehearsal)
+        phase_reduced_forward(dev, size)
+        phase_subvolume(dev, size, rehearsal)
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
     rows, seg_rows = phase_times(dev, card, size)
@@ -1346,7 +1682,13 @@ def main(argv=None) -> int:
     launches["lm"] = lm["counts"]
     check(launches["lm"]["K4"] > 0, "K4 was not launched on its main path")
     check(views["launches"] > 0, "K5 was not launched on its path")
-    print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err, k4_err, lm["k4_row"], views)))
+    k1r_err = phase_reduced_parity(dev)
+    phase_reduced_forward(dev, size)
+    launches["subvolume"] = phase_subvolume(dev, size, rehearsal)
+    check(launches["subvolume"]["reduced"]["K1r"] > 0, "K1r was not launched on its main path")
+    k1r_rows = phase_reduced_times(dev, card, size)
+    print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err, k4_err, lm["k4_row"], views,
+                                  k1r_rows, k1r_err)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

@@ -14,7 +14,14 @@ axis. Built-in executors, with the reference backend each is held to
   ``cuda_megakernel`` — ``ops.meshnet_apply_megakernel``, one depth-first
                         kernel launch (K2) per segment of a plan that fits
                         one block's shared memory (reference
-                        ``pallas_megakernel``).
+                        ``pallas_megakernel``); fp32 only so far.
+  ``streaming``       — ``streaming.streaming_apply``, the two-live-buffer
+                        layer loop (reference ``streaming``): plain PyTorch
+                        by design, as the reference's is XLA.
+
+Every executor takes ``precision`` (kernels/quantize.py): fp32, or bf16
+and int8w, where ``cuda_fused`` launches K1r a layer and ``torch`` serves
+the plain reduced forward (``quantize.reference_apply``).
 
 On CPU tensors the kernels' plain versions run. ``hbm_bytes`` prices each
 kernel-backed schedule's device-memory traffic (telemetry/traffic.py).
@@ -29,10 +36,10 @@ its whole forward at the served shape takes less time on the card than
 ``cuda_fused``'s in the same run (``chip_smoke.py`` phase 6 times both);
 until then the megakernel is chosen only by name.
 
-``streaming_apply`` is what mode ``"streaming"`` runs; for every backend it
-is the same forward, since eager PyTorch frees each layer's activation when
-the next one replaces it, so memory does not grow with depth
-(``core/streaming.py`` comes with a later slice).
+``streaming_apply`` is what mode ``"streaming"`` runs: the streaming
+schedule for ``torch`` and ``streaming``, as the reference's ``xla``; for
+the kernel paths the same forward, since each layer's activation is read
+by one next launch and freed when it is replaced.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.core import meshnet
+from repro_torch.core import streaming
 from repro_torch.core.meshnet import MeshNetConfig
 from repro_torch.kernels import ops, quantize
 from repro_torch.telemetry import traffic
@@ -51,7 +58,12 @@ ApplyFn = Callable[..., torch.Tensor]
 BytesFn = Callable[..., Optional[int]]
 
 #: the port's backend names -> the reference backends they are held to.
-REFERENCE_NAMES = {"torch": "xla", "cuda_fused": "pallas_fused", "cuda_megakernel": "pallas_megakernel"}
+REFERENCE_NAMES = {
+    "torch": "xla",
+    "cuda_fused": "pallas_fused",
+    "cuda_megakernel": "pallas_megakernel",
+    "streaming": "streaming",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +98,20 @@ def names() -> list[str]:
     return list(_REGISTRY)
 
 
-def default_executor(device=None) -> str:
-    """``cuda_fused`` on a CUDA device, ``torch`` on the CPU. ``device=None``
-    asks whether this host has a card. Not ``cuda_megakernel``, though the
-    reference prefers its megakernel: at fp32 on the CUDA cores K2 does the
-    per-layer work plus the halo's recompute, so it waits until it beats
-    the per-layer forward on the card (see the module docstring)."""
+def default_executor(
+    model: Optional[MeshNetConfig] = None,
+    volume_shape: Optional[tuple[int, int, int]] = None,
+    *,
+    device=None,
+    precision: str = "fp32",
+) -> str:
+    """``cuda_fused`` on a CUDA device, ``torch`` on the CPU, whatever the
+    model, volume and precision (the reference's signature, so callers
+    resolve as they do there). ``device=None`` asks whether this host has
+    a card. Not ``cuda_megakernel``, though the reference prefers its
+    megakernel: at fp32 on the CUDA cores K2 does the per-layer work plus
+    the halo's recompute, so it waits until it beats the per-layer forward
+    on the card (see the module docstring), and it runs fp32 only."""
     if device is None:
         cuda = torch.cuda.is_available()
     else:
@@ -99,10 +119,18 @@ def default_executor(device=None) -> str:
     return "cuda_fused" if cuda else "torch"
 
 
-def resolve(name: Optional[str], *, device=None) -> str:
-    """Map None/"auto" to the device's default; validate explicit names."""
+def resolve(
+    name: Optional[str],
+    model: Optional[MeshNetConfig] = None,
+    volume_shape: Optional[tuple[int, int, int]] = None,
+    precision: str = "fp32",
+    *,
+    device=None,
+) -> str:
+    """Map None/"auto" to the device's default (given the model, shape and
+    precision, as the reference's); validate explicit names."""
     if name is None or name == AUTO:
-        return default_executor(device)
+        return default_executor(model, volume_shape, device=device, precision=precision)
     if name not in _REGISTRY:
         raise KeyError(f"unknown executor {name!r}; registered: {sorted(_REGISTRY)} (or 'auto')")
     return name
@@ -123,7 +151,9 @@ def bound_apply(
 ) -> Callable[[Any, torch.Tensor, MeshNetConfig], torch.Tensor]:
     """The executor's forward with its precision bound in, as a 3-arg
     ``(params, x, cfg)`` callable, cached per (executor, schedule,
-    precision). ``schedule="streaming"`` selects ``streaming_apply``."""
+    precision): the counterpart of the reference's ``jitted_apply`` (eager
+    PyTorch compiles nothing, so only the binding is cached).
+    ``schedule="streaming"`` selects ``streaming_apply``."""
     if schedule not in ("apply", "streaming"):
         raise ValueError(f"schedule must be 'apply' or 'streaming', got {schedule!r}")
     quantize.validate(precision)
@@ -137,6 +167,27 @@ def bound_apply(
 
         _BOUND[key] = bound
     return _BOUND[key]
+
+
+def make_infer(
+    name: Optional[str],
+    params,
+    cfg: MeshNetConfig,
+    volume_shape: Optional[tuple[int, int, int]] = None,
+    precision: str = "fp32",
+    *,
+    device=None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The per-block closure of sub-volume patching: (B, d, h, w[, C])
+    cubes -> (B, d, h, w, classes), over the ``bound_apply`` cache.
+    ``volume_shape`` is the cube shape the closure serves, the shape
+    "auto" is resolved against."""
+    fn = bound_apply(resolve(name, cfg, volume_shape, precision, device=device), precision=precision, device=device)
+
+    def infer(c: torch.Tensor) -> torch.Tensor:
+        return fn(params, c, cfg)
+
+    return infer
 
 
 def modeled_hbm_bytes(
@@ -158,16 +209,16 @@ def modeled_hbm_bytes(
 
 
 def _torch_apply(params, x, cfg, precision: str = "fp32"):
-    quantize.validate(precision)
-    return meshnet.apply(params, x, cfg)
+    return quantize.reference_apply(params, x, cfg, precision)
 
 
 register(
     ExecutorSpec(
         name="torch",
         apply=_torch_apply,
-        streaming_apply=_torch_apply,
-        description="plain PyTorch forward (meshnet.apply); parity oracle",
+        streaming_apply=streaming.streaming_apply,
+        description="plain PyTorch forward (meshnet.apply; quantize.reference_apply "
+        "at bf16/int8w); parity oracle",
     )
 )
 
@@ -188,5 +239,15 @@ register(
         streaming_apply=ops.meshnet_apply_megakernel,
         description="depth-first CUDA kernel per segment of a shared-memory plan",
         hbm_bytes=traffic.meshnet_megakernel_bytes,
+    )
+)
+
+register(
+    ExecutorSpec(
+        name="streaming",
+        apply=streaming.streaming_apply,
+        streaming_apply=streaming.streaming_apply,
+        description="layer loop over stacked layers; memory-floor schedule",
+        hbm_bytes=traffic.meshnet_streaming_bytes,
     )
 )

@@ -1,34 +1,41 @@
 """The Brainchop pipeline in PyTorch — counterpart of ``repro/core/pipeline.py``.
 
-conform -> [brain-mask -> crop] -> inference (full | streaming) -> argmax
--> connected-components filtering -> uncrop, on one device.
+conform -> [brain-mask -> crop] -> inference (full | subvolume |
+streaming) -> argmax -> connected-components filtering -> uncrop, on one
+device.
 
 Inference dispatches through the executor registry (core/executors.py):
 ``"auto"`` is ``cuda_fused`` (one fused kernel launch per layer) on the
 card and ``torch`` (the plain forward) on the CPU; ``cuda_megakernel``
-runs the depth-first forward. The executor and precision that ran, and
-the schedule's modeled device-memory bytes, are stamped on the telemetry
-record, and each stage is timed into it; on the card every stage ends in
-a synchronisation so the times cover the work, not its launch.
+runs the depth-first forward, ``streaming`` the layer loop. Mode
+``subvolume`` (the paper's failsafe) runs the executor on overlapping
+cubes (core/patching.py). The conformed volume leaves preprocessing at
+the precision policy's storage type (int8 under int8w, bf16 under bf16),
+and the mask forward and the crop run on it. The executor and precision
+that ran, the weights' bytes and the schedule's modeled device-memory
+bytes are stamped on the telemetry record, and each stage is timed into
+it; on the card every stage ends in a synchronisation so the times cover
+the work, not its launch.
 
-Not ported yet: ``mode="subvolume"`` (the patching slice) and
-``shard_devices > 1`` (the multi-GPU slice) raise ``ValueError``.
-Otherwise ``run`` never raises on a budget, plan or degenerate-volume
-failure: it returns a failed record.
+Not ported yet: ``shard_devices > 1`` (the multi-GPU slice) raises
+``ValueError``, and ``cuda_megakernel`` at bf16 or int8w raises
+``megakernel.PrecisionNotPorted``. Otherwise ``run`` never raises on a
+budget, plan or degenerate-volume failure: it returns a failed record.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Optional
 
 import torch
 
 from repro_torch import resolve_device, synchronize
-from repro_torch.core import components, conform as conform_mod, cropping, executors
+from repro_torch.core import components, conform as conform_mod, cropping, executors, patching
 from repro_torch.core.meshnet import MeshNetConfig
-from repro_torch.kernels import quantize
+from repro_torch.kernels import megakernel, quantize
 from repro_torch.telemetry.budget import BudgetExceeded, MemoryBudget
 from repro_torch.telemetry.record import StageTimes, TelemetryRecord
 
@@ -40,14 +47,21 @@ class PipelineConfig:
     name: str = "gwm_light"
     model: MeshNetConfig = dataclasses.field(default_factory=MeshNetConfig)
     volume_shape: tuple[int, int, int] = (256, 256, 256)
-    # inference mode: "full" | "streaming" ("subvolume" is not ported yet)
+    # inference mode: "full" | "subvolume" | "streaming"
     mode: str = "full"
-    # forward implementation: "auto" | "torch" | "cuda_fused" | "cuda_megakernel"
+    # forward implementation: "auto" | "torch" | "cuda_fused" |
+    # "cuda_megakernel" | "streaming"
     executor: str = executors.AUTO
     # slab count for multi-GPU sharding; only None or 1 in this slice
     shard_devices: Optional[int] = None
-    # storage policy (kernels/quantize.py): "auto" resolves to fp32
+    # storage policy (kernels/quantize.py): "fp32" | "bf16" | "int8w" |
+    # "auto" (fp32 in the port)
     precision: str = quantize.AUTO
+    # sub-volume mode: the cube's core, its context on each side, and the
+    # cubes one forward takes as a batch
+    cube: int = 64
+    overlap: int = patching.MESHNET_RF_RADIUS
+    batch_cubes: int = 1
     use_cropping: bool = False
     crop_margin: int = 4
     min_component_size: int = 64
@@ -78,19 +92,18 @@ def run(
     ``device`` (None: the CUDA card, which must exist). ``params`` and the
     mask model's params must already be on that device."""
     dev = resolve_device(device)
-    if cfg.mode == "subvolume":
-        raise ValueError(
-            "mode='subvolume' is not ported yet: it comes with the patching "
-            "slice of the port (ROADMAP Queue 1, item 10)"
-        )
     if cfg.shard_devices is not None and cfg.shard_devices > 1:
         raise ValueError(
             "shard_devices > 1 is not ported yet: it comes with the multi-GPU "
             "slice of the port (ROADMAP Queue 1, item 14)"
         )
     times = StageTimes()
+    # "auto" is resolved against the shape each forward sees: the padded
+    # cube in sub-volume mode.
+    cube_shape = (cfg.cube + 2 * cfg.overlap,) * 3
+    work_shape = cube_shape if cfg.mode == "subvolume" else cfg.volume_shape
     precision = quantize.resolve_precision(cfg.precision, cfg.model)
-    exec_name = executors.resolve(cfg.executor, device=dev)
+    exec_name = executors.resolve(cfg.executor, cfg.model, work_shape, precision, device=dev)
     rec = TelemetryRecord(
         model=cfg.name,
         mode=cfg.mode,
@@ -107,13 +120,23 @@ def run(
         # the megakernel this plans the schedule, so a plan that fits no
         # block's shared memory fails the run here; the mask forward runs
         # under the same executor, so its model is planned too.
-        rec.hbm_bytes_modeled = executors.modeled_hbm_bytes(
-            exec_name, cfg.model, cfg.volume_shape, precision=precision, device=dev
-        )
+        # In sub-volume mode the model is the cube's, times the cubes.
+        if cfg.mode == "subvolume":
+            ncubes = math.prod(-(-s // cfg.cube) for s in cfg.volume_shape)
+            per_cube = executors.modeled_hbm_bytes(
+                exec_name, cfg.model, cube_shape, precision=precision, device=dev
+            )
+            rec.hbm_bytes_modeled = None if per_cube is None else ncubes * per_cube
+        else:
+            rec.hbm_bytes_modeled = executors.modeled_hbm_bytes(
+                exec_name, cfg.model, cfg.volume_shape, precision=precision, device=dev
+            )
         if cfg.use_cropping and mask_model is not None:
             executors.modeled_hbm_bytes(
                 exec_name, mask_model[1], cfg.volume_shape, precision=precision, device=dev
             )
+    except megakernel.PrecisionNotPorted:
+        raise
     except ValueError:
         rec.status = "fail"
         rec.fail_type = "vmem_oom"  # the reference's name for an unplannable schedule
@@ -121,10 +144,16 @@ def run(
     budget = cfg.budget or MemoryBudget.unlimited()
     act_bytes = quantize.act_bytes(precision)
     try:
-        # --- Stage 1: preprocessing (to the device, conform) ---------------
+        # --- Stage 1: preprocessing (to the device, conform, policy cast) --
         t0 = _now()
         vol = torch.as_tensor(vol, dtype=torch.float32, device=dev)
         x = conform_mod.conform(vol, cfg.volume_shape, voxel_size)
+        # The conformed [0, 1] volume leaves preprocessing in the policy's
+        # storage type, so the forwards below read it at that width.
+        if precision == "int8w":
+            x = quantize.quantize_input(x)
+        elif precision == "bf16":
+            x = x.to(quantize.act_dtype(precision))
         synchronize(dev)
         times.preprocessing = _now() - t0
 
@@ -148,15 +177,30 @@ def run(
 
         # --- Stage 3: inference ----------------------------------------------
         t0 = _now()
-        if cfg.mode == "streaming":
-            budget.charge_streaming(x.shape, cfg.model, dtype_bytes=act_bytes)
-            schedule = "streaming"
-        else:  # full
-            budget.charge_inference(x.shape, cfg.model, dtype_bytes=act_bytes)
-            schedule = "apply"
-        logits = executors.bound_apply(exec_name, schedule, precision)(
-            params, x[None], cfg.model
-        )[0]
+        if cfg.mode == "subvolume":
+            budget.charge_subvolume(cfg.cube, cfg.overlap, cfg.model, dtype_bytes=act_bytes)
+            # split, per-cube forwards and the trimmed merge, all on the
+            # device and all attributed to inference
+            logits = patching.subvolume_inference(
+                x,
+                params=params,
+                model_cfg=cfg.model,
+                executor=exec_name,
+                cube=cfg.cube,
+                overlap=cfg.overlap,
+                batch_cubes=cfg.batch_cubes,
+                precision=precision,
+            )
+        else:
+            if cfg.mode == "streaming":
+                budget.charge_streaming(x.shape, cfg.model, dtype_bytes=act_bytes)
+                schedule = "streaming"
+            else:  # full
+                budget.charge_inference(x.shape, cfg.model, dtype_bytes=act_bytes)
+                schedule = "apply"
+            logits = executors.bound_apply(exec_name, schedule, precision)(
+                params, x[None], cfg.model
+            )[0]
         synchronize(dev)
         times.inference = _now() - t0
 

@@ -1,4 +1,4 @@
-"""Wrappers of K1 and K5, the fused 3x3x3 dilated conv (+ folded BN + ReLU).
+"""Wrappers of K1, K1r and K5, the fused 3x3x3 dilated conv (+ folded BN + ReLU).
 
 Counterpart of ``repro/kernels/dilated_conv3d.py::dilated_conv3d``, whose
 ``variant`` picks the schedule: ``"halo"`` (K1, ``csrc/dilated_conv3d.cu``
@@ -9,17 +9,21 @@ into a double-buffered ring) or
 ``"views"`` (K5, ``csrc/dilated_conv3d_views.cu``, the 27-shifted-tile
 schedule, bit-equal to K1 and its oracle on the card). Both are CUDA C++
 for sm_90a (each source's header says what bounds it), loaded through
-``_build``.
+``_build``. A bf16 ``x`` takes K1r (``csrc/dilated_conv3d_lp.cu``), the
+halo kernel's function at the reduced policies: bf16 or int8 weights,
+fp32 accumulation and epilogue, a bf16 output rounded once.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version (``kernels/ref.py``), which computes the same function for both.
-``launches`` (K1) and ``views_launches`` (K5) count kernel launches and
-nothing else, so a run can show that its path went through the kernel.
+``launches`` (K1), ``reduced_launches`` (K1r) and ``views_launches`` (K5)
+count kernel launches and nothing else, so a run can show that its path
+went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -29,8 +33,9 @@ from repro_torch.kernels import _build, ref
 SMEM_LIMIT = _build.SMEM_LIMIT
 
 #: kernel launches since the counter was last reset (CPU calls don't count):
-#: K1's, and K5's.
+#: K1's, K1r's and K5's.
 launches = 0
+reduced_launches = 0
 views_launches = 0
 
 #: side of K5's cubic output tile (one thread per voxel).
@@ -124,6 +129,35 @@ def _kernel(variant: str):
     return _LIBS[variant]
 
 
+def lp_smem_bytes(cin: int, cout: int) -> int:
+    """Shared memory one block of K1r allocates: the weights widened to
+    fp32 at row stride Cout rounded up to 4, then bias, scale and offset
+    (``csrc/dilated_conv3d_lp.cu``)."""
+    return 4 * (27 * cin * _ceil4(cout) + 3 * cout)
+
+
+@functools.cache
+def _lp_kernel():
+    """(library, launch function, supports function) of K1r."""
+    lib = _build.load("dilated_conv3d_lp")
+    fn = lib.repro_dilated_conv3d_lp
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.repro_dilated_conv3d_lp_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+    lib.repro_dilated_conv3d_lp_blocks_per_sm.restype = ctypes.c_int
+    lib.repro_dilated_conv3d_lp_supports.argtypes = [ctypes.c_int]
+    lib.repro_dilated_conv3d_lp_supports.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib, fn, lib.repro_dilated_conv3d_lp_supports
+
+
+def lp_blocks_per_sm(cin: int, cout: int, w_int8: bool) -> int:
+    """Blocks of K1r an SM holds (the runtime's occupancy calculator). On
+    the card only."""
+    return int(_lp_kernel()[0].repro_dilated_conv3d_lp_blocks_per_sm(cin, cout, int(w_int8)))
+
+
 def k1_occupancy(shape: tuple, cin: int, cout: int, dilation: int) -> tuple[int, int]:
     """(blocks, blocks an SM holds) of one K1 launch over ``shape`` (B, D,
     H, W), from the built kernel (the runtime's occupancy calculator). On
@@ -162,11 +196,13 @@ def dilated_conv3d(
     """'Same' 3x3x3 dilated conv: x (B, D, H, W, Cin), w (3, 3, 3, Cin,
     Cout), b (Cout,) -> (B, D, H, W, Cout). With ``fuse_affine``:
     ``relu((conv + b) * scale + offset)``, scale 1 and offset 0 when absent.
-    ``variant``: "halo" (K1) or "views" (K5), one function.
+    ``variant``: "halo" (K1) or "views" (K5), one function. A bfloat16
+    ``x`` with variant "halo" is K1r's: bf16 or int8 ``w``, fp32 ``b``,
+    ``scale`` and ``offset``, accumulation in fp32 and a bf16 output.
 
-    On CUDA every tensor must be contiguous fp32 on x's device, Cout one of
-    the kernels' instantiated widths (5, 10, 18, 21), and what a block
-    stages within its shared memory."""
+    On CUDA every tensor must be contiguous on x's device, fp32 for K1 and
+    K5, Cout one of the kernels' instantiated widths (5, 10, 18, 21), and
+    what a block stages within its shared memory."""
     global launches, views_launches
     if variant not in _SOURCES:
         raise ValueError(f"variant must be 'halo' or 'views', got {variant!r}")
@@ -177,6 +213,8 @@ def dilated_conv3d(
         )
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if x.dtype == torch.bfloat16 and variant == "halo":
+        return _reduced(x, w, b, dilation, scale, offset, fuse_affine)
     cin, cout = w.shape[3], w.shape[4]
     if fuse_affine:
         scale = torch.ones(cout, device=x.device) if scale is None else scale
@@ -214,4 +252,45 @@ def dilated_conv3d(
         views_launches += 1
     else:
         launches += 1
+    return out
+
+
+def _reduced(x, w, b, dilation, scale, offset, fuse_affine) -> torch.Tensor:
+    """One launch of K1r: x bf16, w bf16 or int8, b (and scale, offset)
+    fp32; a bf16 output."""
+    global reduced_launches
+    cin, cout = w.shape[3], w.shape[4]
+    if w.dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"K1r takes bfloat16 or int8 weights, got {w.dtype}")
+    if fuse_affine:
+        scale = torch.ones(cout, device=x.device) if scale is None else scale
+        offset = torch.zeros(cout, device=x.device) if offset is None else offset
+    for t in [b] + ([scale, offset] if fuse_affine else []):
+        if t.dtype != torch.float32:
+            raise TypeError(f"K1r takes a float32 bias, scale and offset, got {t.dtype}")
+    for t in [x, w, b] + ([scale, offset] if fuse_affine else []):
+        if t.device != x.device:
+            raise ValueError(f"operands on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors only")
+    lib, launch, supports = _lp_kernel()
+    if not supports(cout):
+        raise ValueError(f"K1r is not instantiated for Cout={cout}")
+    if lp_smem_bytes(cin, cout) > SMEM_LIMIT:
+        raise ValueError(
+            f"Cin={cin} x Cout={cout} needs {lp_smem_bytes(cin, cout)} bytes of "
+            f"shared memory, over the {SMEM_LIMIT} one block can use"
+        )
+    B, D, H, W, _ = x.shape
+    out = torch.empty((B, D, H, W, cout), dtype=torch.bfloat16, device=x.device)
+    err = launch(
+        x.data_ptr(), w.data_ptr(), int(w.dtype == torch.int8), b.data_ptr(),
+        scale.data_ptr() if fuse_affine else None,
+        offset.data_ptr() if fuse_affine else None,
+        out.data_ptr(), B, D, H, W, cin, cout, int(dilation), int(fuse_affine),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"dilated_conv3d (K1r) kernel launch failed: {lib.repro_cuda_error_string(err).decode()}")
+    reduced_launches += 1
     return out

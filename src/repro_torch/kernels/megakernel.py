@@ -54,6 +54,24 @@ from repro_torch.kernels import dilated_conv3d as conv
 #: the planner's default budget: all the shared memory one block can use.
 SMEM_BUDGET = _build.SMEM_LIMIT
 
+
+class PrecisionNotPorted(ValueError):
+    """K2 asked for a policy other than fp32. Not a planning failure: the
+    pipeline lets it through instead of recording an unplannable run."""
+
+
+def require_fp32(precision: str) -> None:
+    """Raise ``PrecisionNotPorted`` unless ``precision`` is fp32: K2 at the
+    bf16 and int8w policies (its int8 staging, ``deq_in`` and
+    ``quant_out``, and the planner's per-role widths) is ROADMAP Queue 2's
+    K2 item, the next slice of the port."""
+    if quantize.validate(precision) != "fp32":
+        raise PrecisionNotPorted(
+            f"cuda_megakernel runs fp32 only: K2 at precision {precision!r} (int8 staging, "
+            "the planner's per-role widths) comes with ROADMAP Queue 2's K2 item, the next "
+            "slice of the port; use executor 'cuda_fused' or precision 'fp32'"
+        )
+
 #: per-axis tile candidates. Sizes below 8 and off the multiples of 8 let a
 #: segment whose hidden activations are large still fit one block. They
 #: reach 256 so that one tile can span a row of a 256^3 volume: a warp of
@@ -389,10 +407,11 @@ def plan(
 ) -> MegakernelPlan:
     """Choose segment boundaries and per-axis tiles by DP over the modeled
     device-memory bytes, subject to every segment's shared memory fitting
-    ``smem_budget``. Only fp32 is ported. Raises ValueError naming the
-    layer that cannot fit, even alone. Memoised: the serving path plans
-    the same (model, volume) for the byte model and for the forward."""
-    quantize.validate(precision)
+    ``smem_budget``. Only fp32 is ported: another policy raises
+    ``PrecisionNotPorted``. Raises ValueError naming the layer that cannot
+    fit, even alone. Memoised: the serving path plans the same (model,
+    volume) for the byte model and for the forward."""
+    require_fp32(precision)
     return _plan_cached(
         tuple(int(d) for d in dilations),
         int(in_channels),

@@ -1,10 +1,11 @@
 """Kernel-backed MeshNet pieces: counterpart of ``repro/kernels/ops.py``.
 
 ``meshnet_apply`` is the ``cuda_fused`` backend of the executor registry
-(core/executors.py): each hidden layer is ONE call of K1 with the folded
-inference BatchNorm and the ReLU in its epilogue, so an activation crosses
-device memory once per layer. The kernel masks the volume's edges itself,
-so no padding to a block multiple is needed.
+(core/executors.py): each hidden layer is ONE call of K1 (K1r at the bf16
+and int8w policies) with the folded inference BatchNorm and the ReLU in
+its epilogue, so an activation crosses device memory once per layer. The
+kernel masks the volume's edges itself, so no padding to a block multiple
+is needed.
 
 ``meshnet_apply_megakernel`` is the ``cuda_megakernel`` backend: one call
 of K2 per segment of a depth-first plan (kernels/megakernel.py), so the
@@ -61,10 +62,26 @@ def meshnet_apply(params, x: torch.Tensor, cfg, *, precision: str = "fp32") -> t
 
     The epilogue is fused on every layer, so the ReLU runs even without
     BatchNorm (scale 1, offset 0). The 1x1x1 head stays a plain matrix
-    product, as the reference leaves it outside its kernels."""
-    quantize.validate(precision)
+    product, as the reference leaves it outside its kernels.
+
+    ``precision`` (kernels/quantize.py): at "bf16" and "int8w" the params
+    are prepared (``prepare_params``, a no-op on a prepared tree), the
+    input cast (``cast_input``), and every layer is one K1r launch with
+    the bias, BatchNorm and (int8w) dequant scale in its fp32 epilogue
+    (``fold_epilogue``); the head accumulates in fp32 and rounds its
+    logits to bf16 (``quantize.head_reduced``)."""
     if x.ndim == 4:
         x = x[..., None]
+    if quantize.validate(precision) != "fp32":
+        params = quantize.prepare_params(params, cfg, precision)
+        x = quantize.cast_input(x, precision).contiguous()
+        for i, d in enumerate(cfg.dilations):
+            layer = params["layers"][i]
+            bias, scale, offset = quantize.fold_epilogue(layer, cfg.use_batchnorm)
+            x = dilated_conv3d(
+                x, layer["w"], bias, dilation=d, scale=scale, offset=offset, fuse_affine=True
+            )
+        return quantize.head_reduced(x, params["head"])
     x = x.contiguous()
     for i, d in enumerate(cfg.dilations):
         layer = params["layers"][i]
@@ -92,8 +109,9 @@ def meshnet_apply_megakernel(
     launch per segment of ``pln`` (planned here when not given), the head
     fused into the last. The input is copied into the first staging array
     at the first segment's halo offset; every later staging array is a
-    segment's output."""
-    quantize.validate(precision)
+    segment's output. fp32 only: another policy raises
+    ``megakernel.PrecisionNotPorted``."""
+    mega_kernel.require_fp32(precision)
     if x.ndim == 4:
         x = x[..., None]
     B, D, H, W, _ = x.shape

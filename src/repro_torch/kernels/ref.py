@@ -3,7 +3,8 @@
 Each is the CPU path of its kernel's wrapper and, on the card, the version
 ``chip_smoke.py`` holds the kernel against. They repeat the kernel's
 arithmetic in plain tensor code and are no yardstick of speed:
-``dilated_conv3d`` for K1 and K5, ``megakernel_segment`` for K2,
+``dilated_conv3d`` for K1 and K5 and, on a bf16 input, K1r,
+``megakernel_segment`` for K2,
 ``dice_counts`` for K3, ``decode_attention`` for K4.
 """
 
@@ -34,6 +35,11 @@ def dilated_conv3d(
     fastest, accumulated in fp32. Output voxel p reads input p + t*d
     (correlation, as the reference's XLA conv). With ``fuse_affine``:
     ``relu((conv + b) * scale + offset)``, scale 1 and offset 0 when absent.
+
+    Everything is computed in fp32 and the result is rounded once to x's
+    dtype: for K1r (x bf16, w bf16 or int8) the taps and weights widen to
+    fp32 exactly, and the one round to bf16 after the epilogue is
+    ``quantize.conv_block_reduced``'s rounding point, the reference's.
     """
     k = w.shape[0]
     pad = dilation * (k - 1) // 2

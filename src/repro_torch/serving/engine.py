@@ -8,7 +8,8 @@ attention layer of every step is one launch of K4 on the card.
 
 SegmentationEngine — picks full-volume streaming vs the sub-volume
 failsafe per request from the memory budget (one H100's device memory by
-default), runs the pipeline on the engine's device, and logs each
+default), at the request's precision policy, runs the pipeline on the
+engine's device with the weights prepared once per policy, and logs each
 request's telemetry. The queued entry points (``submit_async``,
 ``drain``, ``submit_many``) come with the scheduler slice of the port.
 """
@@ -197,9 +198,9 @@ class SegmentationEngine:
     """Server-side Brainchop on one device (``device=None``: the CUDA card,
     which must exist). ``params`` and the mask model's params must already
     be on that device. ``precision`` is the engine's default storage policy
-    ("auto" resolves to fp32 in the port). The slab count of the
-    reference's sharded executors stays on ``PipelineConfig.shard_devices``
-    until the multi-GPU slice."""
+    ("auto" resolves to fp32 in the port); a request may name another. The
+    slab count of the reference's sharded executors stays on
+    ``PipelineConfig.shard_devices`` until the multi-GPU slice."""
 
     def __init__(
         self,
@@ -217,13 +218,18 @@ class SegmentationEngine:
         self.mask_model = mask_model
         self.budget = budget or MemoryBudget.h100()
         self.precision = precision or pipeline_cfg.precision
+        self._prepared: dict[str, object] = {}
         self.log = TelemetryLog()
 
     def _params_for(self, precision: str):
-        """The weight tree in ``precision`` storage: fp32, the only policy
-        ported so far, is the tree as given."""
-        quantize.resolve_precision(precision, self.cfg.model)
-        return self.params
+        """The weight tree in ``precision`` storage, prepared once per
+        policy (``quantize.prepare_params``) and cached for every later
+        request, so an int8w request reads the same int8 weights instead
+        of quantizing them again."""
+        resolved = quantize.resolve_precision(precision, self.cfg.model)
+        if resolved not in self._prepared:
+            self._prepared[resolved] = quantize.prepare_params(self.params, self.cfg.model, resolved)
+        return self._prepared[resolved]
 
     def pick_mode(self, volume_shape, precision: Optional[str] = None) -> str:
         """Budget-driven failsafe selection at the request's precision:

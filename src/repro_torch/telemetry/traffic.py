@@ -1,11 +1,16 @@
 """Modeled device-memory bytes of one MeshNet forward, per executor.
 
 The port's own models of its Hopper schedules (counterpart of
-``repro/telemetry/traffic.py``, whose TPU models they do not copy). A
-model counts the bytes a schedule moves between device memory and the
-SMs, at fp32, the only precision ported. The executor registry wires them
-to its specs (core/executors.py), and ``pipeline.run`` stamps the result
-on ``TelemetryRecord.hbm_bytes_modeled``.
+``repro/telemetry/traffic.py``, whose TPU models they do not copy, but
+for the streaming schedule's, the same stages on both). A model counts
+the bytes a schedule moves between device memory and the SMs, each tensor
+at its role's width under the precision policy (kernels/quantize.py:
+activations 4 or 2 bytes, conv weights 4, 2 or 1, biases, BN vectors and
+scales 4). A batched forward (``batch=N``) moves each data tensor once a
+member and each weight tensor once a launch, so ``bytes(batch=N) < N *
+bytes(batch=1)``. The executor registry wires them to its specs
+(core/executors.py), and ``pipeline.run`` stamps the result on
+``TelemetryRecord.hbm_bytes_modeled``.
 """
 
 from __future__ import annotations
@@ -19,20 +24,54 @@ Shape3 = Sequence[int]
 
 
 def meshnet_fused_bytes(cfg, vol: Shape3, batch: int = 1, precision: str = "fp32") -> int:
-    """K1's per-layer schedule (``ops.meshnet_apply``): each layer reads its
-    input and writes its output once, and reads its weights, bias, scale
-    and offset once a launch; then the head reads the last activation and
-    writes the logits. No padded copy: K1 masks the edges itself."""
-    b = quantize.act_bytes(precision)
+    """K1's (K1r's) per-layer schedule (``ops.meshnet_apply``): each layer
+    reads its input and writes its output once, and reads its weights,
+    bias, scale and offset once a launch; then the head reads the last
+    activation and its weights and bias and writes the logits. No padded
+    copy: the kernel masks the edges itself. The input is priced at the
+    activation width, as the forward casts it first."""
+    ab, wb = quantize.act_bytes(precision), quantize.weight_bytes(precision)
+    hb = ab  # the head's weight: fp32 or bf16
     v = math.prod(int(s) for s in vol)
     c = cfg.channels
-    total = 0
+    data = weights = 0
     cin = cfg.in_channels
     for _ in cfg.dilations:
-        total += batch * v * (cin + c) * b + (27 * cin * c + 3 * c) * b
+        data += v * (cin + c) * ab
+        weights += 27 * cin * c * wb + 3 * c * 4
         cin = c
-    total += batch * v * (c + cfg.num_classes) * b + (c + 1) * cfg.num_classes * b
-    return total
+    data += v * (c + cfg.num_classes) * ab
+    weights += c * cfg.num_classes * hb + cfg.num_classes * 4
+    return batch * data + weights
+
+
+def meshnet_streaming_bytes(cfg, vol: Shape3, batch: int = 1, precision: str = "fp32") -> int:
+    """The streaming schedule (``core/streaming.py``), the reference's
+    model of the same stages: a memory-floor path, not a traffic-optimal
+    one. The first layer runs as a plain block (conv, then BatchNorm and
+    ReLU as stages); each stacked layer pads the carry by the largest
+    dilation and gathers 27 shifted taps, each a read and an accumulator
+    round trip, then the epilogue."""
+    ab, wb = quantize.act_bytes(precision), quantize.weight_bytes(precision)
+    v = math.prod(int(s) for s in vol)
+    dmax = max(cfg.dilations)
+    vp = math.prod(int(s) + 2 * dmax for s in vol)
+    data = weights = 0
+    cin = cfg.in_channels
+    c = cfg.channels
+    for i, _ in enumerate(cfg.dilations):
+        if i == 0:
+            stages = 3 if cfg.use_batchnorm else 2
+            data += v * (cin + c) * ab
+            data += (stages - 1) * 2 * v * c * ab
+        else:
+            data += v * c * ab + vp * c * ab  # pad the carry
+            data += 27 * (vp + 2 * v) * c * ab  # taps, accumulator read and write
+            data += 2 * v * c * ab  # epilogue
+        weights += 27 * cin * c * wb
+        cin = c
+    data += v * (c + cfg.num_classes) * ab
+    return batch * data + weights
 
 
 def meshnet_megakernel_bytes(cfg, vol: Shape3, batch: int = 1, precision: str = "fp32") -> int:

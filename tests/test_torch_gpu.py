@@ -464,3 +464,166 @@ def test_lm_engine_on_the_card_matches_the_cpu(cuda):
     got = eng.run(reqs)
     assert [c.tokens for c in got] == [c.tokens for c in expect]
     assert k4.launches - before == eng.steps * cfg.num_layers
+
+
+# ----------------------------------------------- K1r and the reduced paths ---
+
+BF16_STEP = 2.0**-8  # one bf16 step at the layer's largest magnitude
+
+
+def _reduced_inputs(seed, shape, cin, cout, wdtype, device):
+    from repro_torch.kernels import quantize
+
+    x, w, b, s, o = _inputs(seed, shape, cin, cout, "cpu")
+    x = torch.relu(x).to(torch.bfloat16)  # a layer's input: post-ReLU, bf16
+    if wdtype == torch.int8:
+        w, wscale = quantize.quantize_symmetric(w)
+        s = s * wscale
+    else:
+        w = w.to(torch.bfloat16)
+    return [t.to(device) for t in (x, w, b, s, o)]
+
+
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("dilation", [1, 3, 16, 40])
+@pytest.mark.parametrize("cin", [1, 5, 64])
+@pytest.mark.parametrize("cout", [5, 10, 18, 21])
+def test_reduced_kernel_matches_plain_version(cuda, cout, cin, dilation, wdtype):
+    """K1r at every instantiated width with Cin 1, 5 and 64, bf16 or int8
+    weights, batch 2 at the odd shape (10, 12, 14); d = 16 and 40 are past
+    every extent. Both round an fp32 sum to bf16, the sums in different
+    orders, so one bf16 step at the layer's largest magnitude is the most
+    they may differ by."""
+    x, w, b, s, o = _reduced_inputs(cout * 100 + cin + dilation, (2, 10, 12, 14), cin, cout, wdtype, cuda)
+    kw = dict(dilation=dilation, scale=s, offset=o, fuse_affine=True)
+    before = (conv_kernel.launches, conv_kernel.reduced_launches)
+    got = conv_kernel.dilated_conv3d(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert (conv_kernel.launches - before[0], conv_kernel.reduced_launches - before[1]) == (0, 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 10, 12, 14, cout)
+    expect = ref.dilated_conv3d(x, w, b, **kw)
+    assert float((got.float() - expect.float()).abs().max()) <= BF16_STEP * float(expect.float().abs().max())
+
+
+@pytest.mark.parametrize(
+    "shape,cin,cout,dilation",
+    [
+        ((1, 4, 5, 300), 5, 5, 1),  # two chunks of 256 voxels a row, the second ragged
+        ((1, 3, 6, 530), 1, 5, 7),
+        ((2, 3, 4, 150), 21, 21, 150),
+        ((1, 9, 7, 5), 64, 21, 2),
+        ((1, 37, 45, 29), 5, 10, 4),
+    ],
+)
+def test_reduced_kernel_chunks_and_unfused(cuda, shape, cin, cout, dilation):
+    for wdtype in (torch.bfloat16, torch.int8):
+        x, w, b, s, o = _reduced_inputs(shape[-1] + dilation, shape, cin, cout, wdtype, cuda)
+        for fuse in (False, True):
+            kw = dict(dilation=dilation, scale=s, offset=o, fuse_affine=fuse)
+            got = conv_kernel.dilated_conv3d(x, w, b, **kw)
+            torch.cuda.synchronize()
+            expect = ref.dilated_conv3d(x, w, b, **kw)
+            assert float((got.float() - expect.float()).abs().max()) <= BF16_STEP * float(expect.float().abs().max())
+
+
+def test_reduced_kernel_layout_and_refusals(cuda):
+    lib = conv_kernel._lp_kernel()[0]
+    for cin, cout in itertools.product((1, 5, 21, 64, 128), (5, 10, 18, 21)):
+        assert lib.repro_dilated_conv3d_lp_smem_bytes(cin, cout) == conv_kernel.lp_smem_bytes(cin, cout)
+    x, w, b, s, o = _reduced_inputs(0, (1, 8, 8, 8), 5, 5, torch.bfloat16, cuda)
+    with pytest.raises(TypeError, match="bfloat16 or int8"):
+        conv_kernel.dilated_conv3d(x, w.float(), b)
+    with pytest.raises(TypeError, match="float32 bias"):
+        conv_kernel.dilated_conv3d(x, w, b.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_kernel.dilated_conv3d(x.transpose(1, 2), w, b)
+    x3, w3, b3, _, _ = _reduced_inputs(0, (1, 8, 8, 8), 5, 3, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="Cout=3"):
+        conv_kernel.dilated_conv3d(x3, w3, b3)
+    xw, ww, bw, _, _ = _reduced_inputs(0, (1, 4, 4, 4), 128, 21, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        conv_kernel.dilated_conv3d(xw, ww, bw)
+
+
+@pytest.mark.parametrize("name", ["gwm_light", "brain_mask_fast"])
+def test_reduced_forwards_hold_the_gates(cuda, name):
+    """The reference's gates: bf16 logits within 1e-2 of the plain bf16
+    forward and of the fp32 forward; int8w within 2e-2 of the plain int8w
+    forward. K1r launched once a layer, K1 never."""
+    cfg = meshnet.PAPER_MODELS[name]
+    params = meshnet.init(cfg, generator=torch.Generator().manual_seed(7), device=cuda)
+    vol, _ = mri.generate(torch.Generator().manual_seed(8), mri.SyntheticMRIConfig(shape=(48, 40, 44)), device=cuda)
+    x = vol[None]
+    fp32 = executors.apply("torch", params, x, cfg)
+    for precision, tol in (("bf16", 1e-2), ("int8w", 2e-2)):
+        before = (conv_kernel.launches, conv_kernel.reduced_launches)
+        got = executors.apply("cuda_fused", params, x, cfg, precision=precision)
+        torch.cuda.synchronize()
+        assert (conv_kernel.launches - before[0], conv_kernel.reduced_launches - before[1]) == (0, len(cfg.dilations))
+        assert got.dtype == torch.bfloat16
+        plain = executors.apply("torch", params, x, cfg, precision=precision)
+        assert float((got.float() - plain.float()).abs().max()) <= tol
+        if precision == "bf16":
+            assert float((got.float() - fp32).abs().max()) <= 1e-2
+
+
+def test_reduced_streaming_executor_matches_the_plain_forward(cuda):
+    cfg = meshnet.MeshNetConfig(dilations=(1, 2, 4, 2, 1))
+    params = _params_with_bn(cfg, 9, cuda)
+    x = torch.rand((2, 20, 18, 22), generator=torch.Generator().manual_seed(10)).to(cuda)
+    got = executors.apply("streaming", params, x, cfg)
+    expect = executors.apply("torch", params, x, cfg)
+    assert float((got - expect).abs().max()) <= 1e-4 * max(1.0, float(expect.abs().max()))
+    for precision, tol in (("bf16", 1e-2), ("int8w", 2e-2)):
+        got = executors.apply("streaming", params, x, cfg, precision=precision)
+        plain = executors.apply("torch", params, x, cfg, precision=precision)
+        assert float((got.float() - plain.float()).abs().max()) <= tol
+
+
+def test_subvolume_and_reduced_requests_launch_what_they_imply(cuda):
+    """Sub-volume mode on the card: K1 exactly 9 x (1 + cubes) a request
+    under cuda_fused at fp32 (the mask forward over the whole volume, the
+    main one per cube), K2 (mask plan's segments + cubes x the cube plan's)
+    under cuda_megakernel; at bf16 and int8w K1r 18 a request, K1 none; an
+    engine whose budget forces sub-volume serves (F1)."""
+    from repro_torch.serving.engine import SegmentationEngine
+    from repro_torch.telemetry.budget import MemoryBudget
+
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    mcfg = meshnet.PAPER_MODELS["brain_mask_fast"]
+    params = _params_with_bn(cfg, 11, cuda)
+    mparams = _params_with_bn(mcfg, 12, cuda)
+    vol = mri.generate(torch.Generator().manual_seed(13), mri.SyntheticMRIConfig(shape=(48, 48, 48)), device=cuda)[0]
+    pc = pipeline.PipelineConfig(model=cfg, volume_shape=(48, 48, 48), use_cropping=True, cube=16, overlap=8,
+                                 min_component_size=8)
+    engine = SegmentationEngine(params, pc, mask_model=(mparams, mcfg), device=cuda)
+    full = engine.submit(vol, mode="full")
+    assert full.record.status == "ok"
+    ncubes = 27  # the crop is the whole 48^3 volume: (48 / 16)^3 cubes
+    assert full.record.crop_size == (48, 48, 48)
+    before = (conv_kernel.launches, mk.launches)
+    sub = engine.submit(vol, mode="subvolume")
+    assert sub.record.status == "ok" and sub.record.mode == "subvolume"
+    assert (conv_kernel.launches - before[0], mk.launches - before[1]) == (9 * (1 + ncubes), 0)
+    segs = len(mk.plan_for_config(cfg, (32, 32, 32)).segments)
+    msegs = len(mk.plan_for_config(mcfg, (48, 48, 48)).segments)
+    before = (conv_kernel.launches, mk.launches)
+    res = engine.submit(vol, mode="subvolume", executor="cuda_megakernel")
+    assert res.record.status == "ok"
+    assert (conv_kernel.launches - before[0], mk.launches - before[1]) == (0, msegs + ncubes * segs)
+    for precision in ("bf16", "int8w"):
+        before = (conv_kernel.launches, conv_kernel.reduced_launches)
+        res = engine.submit(vol, precision=precision)
+        assert res.record.status == "ok" and res.record.precision == precision
+        assert (conv_kernel.launches - before[0], conv_kernel.reduced_launches - before[1]) == (0, 18)
+    with pytest.raises(ValueError, match="Queue 2"):
+        engine.submit(vol, precision="bf16", executor="cuda_megakernel")
+    # streaming at 48^3 needs 5.75 MB, a 32^3 cube 1.70 MB (no mask model:
+    # its full-volume forward would not fit either)
+    tight = SegmentationEngine(params, pc, budget=MemoryBudget(2_000_000), device=cuda)
+    assert tight.pick_mode((48, 48, 48)) == "subvolume"
+    before = conv_kernel.launches
+    res = tight.submit(vol)
+    assert res.record.status == "ok" and res.record.mode == "subvolume"
+    assert conv_kernel.launches - before == 9 * ncubes
+    assert res.segmentation.shape == (48, 48, 48)

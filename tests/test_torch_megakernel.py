@@ -270,8 +270,9 @@ class TestPlanner:
     def test_plan_is_memoised_and_fp32_only(self):
         cfg = meshnet.PAPER_MODELS["gwm_light"]
         assert mk.plan_for_config(cfg, PAPER_VOL) is mk.plan_for_config(cfg, PAPER_VOL)
-        with pytest.raises(ValueError, match="quantize slice"):
-            mk.plan_for_config(cfg, PAPER_VOL, precision="bf16")
+        for precision in ("bf16", "int8w"):
+            with pytest.raises(mk.PrecisionNotPorted, match="Queue 2's K2 item"):
+                mk.plan_for_config(cfg, PAPER_VOL, precision=precision)
 
 
 class TestParity:

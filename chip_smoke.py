@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segmentation, training and LM-serving main
 paths on one CUDA card, and segmentation's sub-volume mode and bf16 and
-int8w policies.
+int8w policies (through K1r and K2r).
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # tiny shapes, plain paths, CPU
@@ -15,12 +15,13 @@ training path whose hard Dice metric and held-out scores go through K3
 every decode step is one launch of K4 (decode attention). K5 (the
 27-view conv) computes K1's function and checks it. At the bf16 and
 int8w policies ``cuda_fused`` launches K1r (K1 at reduced widths) a
-layer. Phases, each printed on lines of its own:
+layer and ``cuda_megakernel`` K2r (K2 at reduced widths: bf16 or int8
+staging) a segment. Phases, each printed on lines of its own:
 
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds every kernel source of the port, all at once,
-            timed, with ptxas' register and shared-memory report; K1 and K2
-            (the conv tile core) spill no register at any width
+            timed, with ptxas' register and shared-memory report; K1, K2
+            and K2r (the conv tile core) spill no register at any width
 3. parity   K1 against its plain PyTorch version on the card, relative
             error <= 5e-5 of the output's magnitude; then K2 segment by
             segment against its plain version (same staging arrays in,
@@ -126,21 +127,39 @@ layer. Phases, each printed on lines of its own:
                 and with mode full on every voxel at least the overlap (the
                 receptive-field radius) inside the volume, the whole
                 volume's agreement printed; one bf16 and one int8w
-                request under auto, K1r exactly 18 each and K1 never; F1:
-                an engine whose budget forces pick_mode to subvolume serves
-                a 256^3 volume (K1 9 x 64);
+                request under auto, K1r exactly 18 each and K1 never; the
+                same two under cuda_megakernel, K2r exactly the mask plan's
+                + the main plan's segments each (segments x forwards), K1,
+                K1r and K2 never; F1: an engine whose budget forces
+                pick_mode to subvolume serves a 256^3 volume (K1 9 x 64);
             9d  CUDA-event medians of K1r per layer at bf16 and int8w at
                 256^3 (kernel, plain, F.conv3d at bf16, the bound: bf16
                 tensor-core operations or 2-byte activations, and the fp32
-                CUDA-core time of its operations); the whole forwards at
-                fp32, bf16 and int8w under cuda_fused
-10. kernels one JSON line describing every ported kernel (K1-K5, K1r)
+                CUDA-core time of its operations); K2r per segment of the
+                256^3 plan at bf16 and int8w (kernel, plain, the bound:
+                the function's operations over the bf16 tensor-core peak or
+                its bytes at the policy's widths, blocks an SM held to the
+                runtime's, registers); the whole forwards at fp32, bf16 and
+                int8w under cuda_fused and cuda_megakernel
+            9e  K2r against its plain version at 256^3, segment by segment
+                on the same staging arrays with poisoned borders (NaN for
+                bf16, -128 for int8), at bf16 and int8w, on the planner's
+                plan (gwm_light and brain_mask_fast) and on a forced plan
+                of multi-layer segments (gwm_light): int8 codes within +-1
+                and equal at >= 99.9 %, bf16 within one bf16 step at the
+                array's largest magnitude; then each forward under
+                cuda_megakernel against the plain version of its plan,
+                bf16 within 1e-2 and int8w within 8e-2 of the largest
+                logit (int8 staging: the reference's staged gate), the gaps
+                to the plain reduced forward and to fp32 and the argmax
+                agreements printed
+10. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r)
 11. ok      the last line, {"ok": true, "device": {...}}
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line. Without a CUDA device (and without --cpu-rehearsal) it exits 1.
 --cpu-rehearsal runs phases 1, 4, 5, 7b, 7c, 8c (TinyLlama's smoke
-config), 9b and 9c (cube 8, overlap 4) at a tiny size on the CPU with
+config), 9b, 9e and 9c (cube 8, overlap 4) at a tiny size on the CPU with
 the plain versions, to find wrong paths and shapes without a card; it
 never prints the ok line.
 """
@@ -148,6 +167,7 @@ never prints the ok line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import itertools
@@ -339,7 +359,7 @@ def phase_build() -> None:
     for name in seconds:
         report = [line for line in _build.build_log(name).splitlines() if "ptxas" in line or "spill" in line]
         print(f"-- {name}.cu ptxas:\n" + "\n".join(report))
-    for name in ("dilated_conv3d", "megakernel"):  # the conv tile core at every width
+    for name in ("dilated_conv3d", "megakernel", "megakernel_lp"):  # the conv tile core at every width
         spills = [line for line in _build.build_log(name).splitlines() if "spill" in line]
         check(len(spills) >= 4 and all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills),
               f"{name}.cu spills registers: {spills}")
@@ -1354,13 +1374,175 @@ def phase_reduced_forward(dev, size: int) -> None:
         del fp32
 
 
+STAGED_INT8W_GATE = 8e-2  # int8w logits where int8 staging runs (tests/test_precision.py:114-135)
+
+
+def bf16_step(top: float) -> float:
+    """The spacing of bf16 values at magnitude ``top``: one step there."""
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def lp_gap(got: torch.Tensor, expect: torch.Tensor) -> tuple[bool, str, float]:
+    """(within the gate, what, max abs diff) of K2r's staging array against
+    its plain version's: int8 codes within +-1 and equal at >= 99.9 % of
+    voxels; bf16 within one bf16 step at the array's largest magnitude."""
+    diff = (got.float() - expect.float()).abs()
+    worst, equal = float(diff.max()), float((diff == 0).float().mean())
+    top = float(expect.float().abs().max())
+    what = f"max_abs_diff {worst:.4e} equal {equal:.6%} largest {top:.4f}"
+    if got.dtype == torch.int8:
+        return worst <= 1 and equal >= 0.999, what, worst
+    return worst <= bf16_step(top), what, worst
+
+
+def poisoned(t: torch.Tensor, region: tuple) -> torch.Tensor:
+    """A copy of staging array ``t`` whose border (all but ``region``) is
+    poison no code writes: NaN for bf16, -128 for int8 (codes stop at
+    -127)."""
+    out = torch.full_like(t, -128) if t.dtype == torch.int8 else torch.full_like(t, float("nan"))
+    out[region] = t[region]
+    return out
+
+
+def k2r_stagings(pln, params, cfg, x: torch.Tensor, precision: str, scales):
+    """Yield (i, input staging, operands) for every segment of the reduced
+    plan ``pln``: the first staging the policy's input (int8 codes under
+    int8w, else bf16), each later one K2r's output of the segment before;
+    every border poisoned. ``params`` prepared for ``precision``."""
+    first = pln.segments[0]
+    h = first.halo
+    x = quantize.quantize_input(x) if precision == "int8w" else x.to(torch.bfloat16)
+    region = (slice(None),) + tuple(slice(h, h + v) for v in pln.vol) + (slice(None),)
+    act = torch.zeros((x.shape[0],) + tuple(p + 2 * h for p in pln.padded(first)) + (x.shape[-1],), dtype=x.dtype,
+                      device=x.device)
+    act[region] = x
+    act = poisoned(act, region)
+    for i, seg in enumerate(pln.segments):
+        layers, head = ops.megakernel_operands(params, cfg, seg, precision)
+        deq, qs = k2.scale_operands(pln, i)
+        operands = (layers, head, scales[seg.start - 1] if deq else None,
+                    scales[seg.start + len(seg.dilations) - 1] if qs else None)
+        yield i, act, operands
+        if i + 1 < len(pln.segments):
+            act = poisoned(k2.run_segment(act, pln, i, *operands), written(pln, i))
+
+
+@contextlib.contextmanager
+def plain_segments():
+    """Within the block, every segment ops.meshnet_apply_megakernel runs
+    takes K2's (K2r's) plain version: the plain forward of the same plan,
+    staging included. Its launches count nowhere."""
+    saved = k2.run_segment
+    k2.run_segment = lambda x, pln, i, *operands: ref.megakernel_segment(x, pln, i, *operands)
+    try:
+        yield
+    finally:
+        k2.run_segment = saved
+
+
+def forced_k2r_plan(cfg, size: int, widths) -> "k2.MegakernelPlan":
+    """gwm_light's schedule cut into multi-layer segments (which the
+    time-priced planner does not choose: it prices the halo recompute),
+    each at the largest of a few tiles whose K2r layout fits one block."""
+    tiles = ((8, 8, 64), (4, 4, 64), (4, 4, 32), (2, 2, 32), (2, 2, 8))
+    cuts = ((0, 2), (2, 3), (3, 4), (4, 5), (5, 7), (7, 9))
+    n = len(cfg.dilations)
+    segments = []
+    for i, j in cuts:
+        for t in tiles:
+            seg = k2.Segment(i, cfg.dilations[i:j], cfg.in_channels if i == 0 else cfg.channels, cfg.channels,
+                             tuple(min(a, size) for a in t), j == n, cfg.num_classes)
+            if k2._segment_smem_bytes(seg, widths) <= k2.SMEM_BUDGET:
+                segments.append(seg)
+                break
+        else:
+            raise RuntimeError(f"no tile fits layers {i}..{j}")
+    return k2.MegakernelPlan(tuple(segments), (size,) * 3, widths)
+
+
+def phase_reduced_megakernel(dev, size: int) -> float:
+    print(f"== phase 9e: K2r (the megakernel at bf16 and int8w) against its plain version at {size}^3, segment by "
+          "segment with poisoned borders; the forwards under cuda_megakernel")
+    gen = torch.Generator().manual_seed(SEED + 95)
+    vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
+    x = conform.conform(vol, (size,) * 3)[None]
+    worst = 0.0
+    for name in ("gwm_light", "brain_mask_fast"):
+        cfg = meshnet.PAPER_MODELS[name]
+        params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
+        fp32 = executors.apply("torch", params, x, cfg)
+        for precision in ("bf16", "int8w"):
+            prepared = quantize.prepare_params(params, cfg, precision)
+            scales = quantize.staging_scales_from_bn(prepared, cfg) if precision == "int8w" else None
+            pln = k2.plan_for_config(cfg, (size,) * 3, precision=precision)
+            plans = [("planner's", pln)]
+            if name == "gwm_light":
+                plans.append(("forced", forced_k2r_plan(cfg, size, pln.widths)))
+            for which, p in plans:
+                for i, act, operands in k2r_stagings(p, prepared, cfg, x[..., None], precision, scales):
+                    seg = p.segments[i]
+                    out = k2.run_segment(act, p, i, *operands)
+                    synchronize(dev)
+                    got = out[written(p, i)]
+                    expect = ref.megakernel_segment(act, p, i, *operands)[written(p, i)]
+                    ok, what, diff = lp_gap(got, expect)
+                    if got.dtype == torch.bfloat16:
+                        check(bool(torch.isfinite(got.float()).all()), f"K2r output finite at {name} segment {i}")
+                    print(f"K2r {name} {precision} {which} plan segment {i}/{len(p.segments)} dilations {seg.dilations} "
+                          f"tile {seg.tile} {act.dtype}->{got.dtype}: {what}")
+                    check(ok, f"K2r {name} {precision} {which} segment {i}: {what}")
+                    if got.dtype == torch.bfloat16:
+                        worst = max(worst, diff)
+                    del out, got, expect
+            # the forward under cuda_megakernel at the policy, K2r once a
+            # segment, against the plain version of the same plan
+            got = executors.apply("cuda_megakernel", params, x, cfg, precision=precision)
+            check(got.dtype == torch.bfloat16 and tuple(got.shape) == (1,) + (size,) * 3 + (cfg.num_classes,),
+                  f"{name} {precision} cuda_megakernel logits {got.dtype} {tuple(got.shape)}")
+            check(bool(torch.isfinite(got.float()).all()), f"{name} {precision} cuda_megakernel logits are finite")
+            with plain_segments():
+                plain = executors.apply("cuda_megakernel", params, x, cfg, precision=precision)
+            reduced = executors.apply("torch", params, x, cfg, precision=precision)
+            gate = BF16_GATE if precision == "bf16" else STAGED_INT8W_GATE
+            err, agree = logit_gap(got, plain)
+            top = float(plain.float().abs().max())
+            err_r, agree_r = logit_gap(got, reduced)
+            err32, agree32 = logit_gap(got, fp32)
+            print(f"{name} {precision} cuda_megakernel at {size}^3: vs the plan's plain version max_abs {err:.4e} "
+                  f"(largest logit {top:.4f}, argmax agrees {agree:.6%}); vs the plain {precision} forward "
+                  f"(no staging) max_abs {err_r:.4e} (argmax {agree_r:.6%}); vs fp32 max_abs {err32:.4e} "
+                  f"(argmax {agree32:.6%})")
+            check(err <= gate * top, f"{name} {precision} cuda_megakernel vs plain: {err} > {gate} x {top}")
+            del got, plain, reduced
+        del fp32
+    return worst
+
+
+def k2r_work(pln, i: int) -> tuple[int, int]:
+    """(operations, bytes) of K2r's segment i, counted as K2's (``k2_work``)
+    with each role at the plan's widths: the input staging at its width,
+    the conv weights at theirs, the head's bf16, bias, scale, offset and the
+    scales fp32, the output at its width."""
+    seg = pln.segments[i]
+    ops_, _ = k2_work(pln, i)
+    act, wt, _, _ = pln.widths
+    ib, ob = (torch.tensor([], dtype=t).element_size() for t in pln.dtypes(i))
+    voxels, c, k = math.prod(pln.vol), seg.channels, len(seg.dilations)
+    weights = (27 * seg.cin * c + 27 * c * c * (k - 1)) * wt
+    vectors = 3 * c * k + seg.cin + c
+    if seg.fuse_head:
+        weights += c * seg.num_classes * act
+        vectors += seg.num_classes
+    return ops_, voxels * seg.cin * ib + weights + 4 * vectors + voxels * seg.cout * ob
+
+
 def count_launches(dev, fn):
-    """(result, {K1, K1r, K2} launches) of ``fn()``: every count set to 0
-    just before and read just after (a main path)."""
+    """(result, {K1, K1r, K2, K2r} launches) of ``fn()``: every count set to
+    0 just before and read just after (a main path)."""
     synchronize(dev)
-    k1.launches = k1.reduced_launches = k2.launches = 0
+    k1.launches = k1.reduced_launches = k2.launches = k2.reduced_launches = 0
     res = fn()
-    return res, {"K1": k1.launches, "K1r": k1.reduced_launches, "K2": k2.launches}
+    return res, {"K1": k1.launches, "K1r": k1.reduced_launches, "K2": k2.launches, "K2r": k2.reduced_launches}
 
 
 def stages(rec) -> str:
@@ -1396,13 +1578,13 @@ def phase_subvolume(dev, size: int, rehearsal: bool) -> dict:
               f"modeled bytes {rec.hbm_bytes_modeled}; stages {stages(rec)}")
         check(rec.status == "ok" and rec.mode == "subvolume", f"subvolume request under {name}: {rec.status} {rec.fail_type}")
         if name == "cuda_fused":
-            expect = {"K1": 9 * (1 + ncubes), "K1r": 0, "K2": 0}
+            expect = {"K1": 9 * (1 + ncubes), "K1r": 0, "K2": 0, "K2r": 0}
         elif name == "cuda_megakernel":
             read = (cube + 2 * overlap,) * 3
             segs = len(k2.plan_for_config(cfg, read).segments)
-            expect = {"K1": 0, "K1r": 0, "K2": len(k2.plan_for_config(mcfg, shape).segments) + ncubes * segs}
+            expect = {"K1": 0, "K1r": 0, "K2": len(k2.plan_for_config(mcfg, shape).segments) + ncubes * segs, "K2r": 0}
         else:
-            expect = {"K1": 0, "K1r": 0, "K2": 0}
+            expect = {"K1": 0, "K1r": 0, "K2": 0, "K2r": 0}
         check(counts == expect, f"subvolume {name} launches {counts}, expected {expect}")
         differ = res.segmentation != plain.segmentation
         agree = 1.0 - float(differ.float().mean())
@@ -1428,12 +1610,34 @@ def phase_subvolume(dev, size: int, rehearsal: bool) -> dict:
               f"launches {counts}; params bytes {rec.params_bytes}; modeled bytes {rec.hbm_bytes_modeled}; "
               f"stages {stages(rec)}")
         check(rec.status == "ok" and rec.precision == precision, f"{precision} request: {rec.status} {rec.fail_type}")
-        expect = {"K1": 0, "K1r": 2 * len(cfg.dilations) if cuda else 0, "K2": 0}
+        expect = {"K1": 0, "K1r": 2 * len(cfg.dilations) if cuda else 0, "K2": 0, "K2r": 0}
         check(counts == expect, f"{precision} request launches {counts}, expected {expect}")
         agree = 1.0 - float((res.segmentation != full.segmentation).float().mean())
         print(f"{precision} request vs the fp32 request: {agree:.6%} of voxels agree")
         out[precision] = counts
     out["reduced"] = {"K1r": out["bf16"]["K1r"] + out["int8w"]["K1r"]}
+    # The same requests under cuda_megakernel: K2r once a segment of the
+    # mask plan and of the main plan, both at the policy's widths (a main
+    # path each: counts 0 just before, read just after).
+    k2r = 0
+    for precision in ("bf16", "int8w"):
+        res, counts = count_launches(dev, lambda: engine.submit(vol, precision=precision, executor="cuda_megakernel"))
+        rec = res.record
+        print(f"{precision} request (cuda_megakernel): status {rec.status} mode {rec.mode} executor {rec.executor} "
+              f"launches {counts}; modeled bytes {rec.hbm_bytes_modeled}; stages {stages(rec)}")
+        check(rec.status == "ok" and (rec.executor, rec.precision) == ("cuda_megakernel", precision),
+              f"{precision} cuda_megakernel request: {rec.status} {rec.fail_type} {rec.executor}")
+        segs = (len(k2.plan_for_config(mcfg, shape, precision=precision).segments)
+                + len(k2.plan_for_config(cfg, rec.crop_size, precision=precision).segments))
+        expect = {"K1": 0, "K1r": 0, "K2": 0, "K2r": segs if cuda else 0}
+        check(counts == expect, f"{precision} cuda_megakernel request launches {counts}, expected {expect} "
+                                f"(segments x forwards)")
+        plain = engine.submit(vol, precision=precision, executor="torch")
+        for other, what in ((plain, f"the plain {precision} request"), (full, "the fp32 request")):
+            agree = 1.0 - float((res.segmentation != other.segmentation).float().mean())
+            print(f"{precision} cuda_megakernel request vs {what}: {agree:.6%} of voxels agree")
+        k2r += counts["K2r"]
+    out["reduced"]["K2r"] = k2r
     # F1: a budget under the streaming need at this size (two live
     # activations and the logits) and over a cube's, with no crop model
     # (its full-volume forward is charged whole).
@@ -1451,12 +1655,12 @@ def phase_subvolume(dev, size: int, rehearsal: bool) -> dict:
           f"pick_mode {mode}; status {rec.status} mode {rec.mode} launches {counts}; stages {stages(rec)}")
     check(mode == "subvolume" and rec.status == "ok" and rec.mode == "subvolume", f"F1 probe: {mode} {rec.status} {rec.fail_type}")
     ncubes = math.prod(-(-s // cube) for s in shape)
-    check(counts == {"K1": 9 * ncubes if cuda else 0, "K1r": 0, "K2": 0}, f"F1 probe launches {counts}")
+    check(counts == {"K1": 9 * ncubes if cuda else 0, "K1r": 0, "K2": 0, "K2r": 0}, f"F1 probe launches {counts}")
     return out
 
 
-def phase_reduced_times(dev, card: str, size: int) -> list[dict]:
-    print(f"== phase 9d: K1r times at the main path's shapes ({size}^3, card: {card})")
+def phase_reduced_times(dev, card: str, size: int) -> tuple[list[dict], list[dict]]:
+    print(f"== phase 9d: K1r and K2r times at the main path's shapes ({size}^3, card: {card})")
     _, peak_fp32, peak_bw = peaks_for(card)
     cfg = meshnet.PAPER_MODELS["gwm_light"]
     per_forward = {}
@@ -1497,12 +1701,52 @@ def phase_reduced_times(dev, card: str, size: int) -> list[dict]:
         prepared = quantize.prepare_params(params, cfg, precision)
         ms = time_ms(lambda: ops.meshnet_apply(prepared, xs, cfg, precision=precision))
         print(f"times forward cuda_fused {precision}: {ms:.4f} ms (one gwm_light forward at {size}^3, params prepared)")
+
+    # K2r: every segment of the 256^3 plan at each policy on the staging
+    # array it reads; its bound counts the function's own work at the
+    # policy's widths, its operations at the bf16 tensor-core rate
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k2r_rows = []
+    for precision in ("bf16", "int8w"):
+        prepared = quantize.prepare_params(params, cfg, precision)
+        scales = quantize.staging_scales_from_bn(prepared, cfg) if precision == "int8w" else None
+        pln = k2.plan_for_config(cfg, (size,) * 3, precision=precision)
+        for i, act, operands in k2r_stagings(pln, prepared, cfg, xs[..., None], precision, scales):
+            seg = pln.segments[i]
+            kernel_ms = time_ms(lambda: k2.run_segment(act, pln, i, *operands))
+            plain_ms = time_ms(lambda: ref.megakernel_segment(act, pln, i, *operands), runs=5)
+            ops_, bytes_ = k2r_work(pln, i)
+            bound_ms, bound_by = bound(ops_, bytes_, BF16_TC_PEAK, peak_bw)
+            macs, modeled = pln.segment_operations(i), pln.segment_hbm_bytes(i)
+            plan_bound_ms, plan_bound_by = bound(2 * macs, modeled, BF16_TC_PEAK, peak_bw)
+            smem = int(k2._segment_smem_bytes(seg, pln.widths))
+            blocks, per_sm = pln.segment_blocks(i), k2.blocks_per_sm(seg, pln.widths)
+            check(per_sm == int(k2._blocks_per_sm(smem, seg.channels, pln.widths)),
+                  f"K2r segment {i}: the planner's blocks an SM differ from the runtime's {per_sm}")
+            row = dict(
+                precision=precision, segment=i, dilations=list(seg.dilations), tile=list(seg.tile),
+                fuse_head=seg.fuse_head, staging=[str(t).replace("torch.", "") for t in pln.dtypes(i)],
+                smem_bytes=smem, blocks=blocks, blocks_per_sm=per_sm, waves=blocks / (sms * per_sm),
+                registers=k2.REGISTERS_LP[seg.channels], kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / kernel_ms, fp32_cuda_core_ms=ops_ / peak_fp32 * 1e3,
+                modeled_ms=pln.segment_modeled_ms(i), ops=ops_, bytes=bytes_, plan_bound_ms=plan_bound_ms,
+                plan_bound_by=plan_bound_by, multiply_adds=macs, modeled_bytes=modeled,
+            )
+            print("times K2r " + json.dumps(row))
+            k2r_rows.append(row)
+        print(f"times K2r plan {precision}: modeled {pln.modeled_ms():.4f} ms; kernels "
+              f"{sum(r['kernel_ms'] for r in k2r_rows if r['precision'] == precision):.4f} ms")
+    for precision in ("fp32", "bf16", "int8w"):
+        prepared = quantize.prepare_params(params, cfg, precision)
+        ms = time_ms(lambda: ops.meshnet_apply_megakernel(prepared, xs, cfg, precision=precision))
+        print(f"times forward cuda_megakernel {precision}: {ms:.4f} ms (one gwm_light forward at {size}^3, "
+              "params prepared)")
     print_clocks()
-    return rows
+    return rows, k2r_rows
 
 
 def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err, k4_err, k4_row, views,
-                 k1r_rows, k1r_err) -> dict:
+                 k1r_rows, k1r_err, k2r_rows, k2r_err) -> dict:
     """Per-forward numbers of K1, K2 and K5: one gwm_light forward at 256^3,
     9 launches of K1 or K5 or one launch of K2 per segment of the plan; K3's
     per count of one 256^3 3-class pair; K4's per launch at the served
@@ -1521,6 +1765,10 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
     r8 = [r for r in k1r_rows if r["weights"] == "int8"]
     t16, b16, by16 = totals(r16, per_layer)
     t8, b8, _ = totals(r8, per_layer)
+    s16 = [r for r in k2r_rows if r["precision"] == "bf16"]
+    s8 = [r for r in k2r_rows if r["precision"] == "int8w"]
+    tk16, bk16, byk16 = totals(s16)
+    tk8, bk8, _ = totals(s8)
     return {
         "kernels": [
             {
@@ -1636,6 +1884,31 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
                        "bound: operations over the bf16 tensor-core peak or bytes at 2 B an activation over the "
                        "memory rate; launches from one bf16 and one int8w request served under auto (18 each)",
             },
+            {
+                "name": "megakernel_segment_lp",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/megakernel_lp.cu",
+                "replaces": "src/repro/kernels/megakernel.py:482",
+                "tpu_kernel": "src/repro/kernels/megakernel.py::_segment_kernel (bf16 and int8w policies: "
+                              "deq_in, quant_out, compute-dtype scratch)",
+                "launches": launches["subvolume"]["reduced"]["K2r"],
+                "max_abs_err": k2r_err,
+                "ms": tk16["kernel_ms"],
+                "plain_ms": tk16["plain_ms"],
+                "bound_ms": bk16,
+                "bound_by": byk16,
+                "library_ms": None,
+                "plan_bound_ms": sum(r["plan_bound_ms"] for r in s16),
+                "fp32_cuda_core_ms": sum(r["fp32_cuda_core_ms"] for r in s16),
+                "ms_int8w": tk8["kernel_ms"],
+                "plain_ms_int8w": tk8["plain_ms"],
+                "bound_ms_int8w": bk8,
+                "per": f"one gwm_light forward at 256^3 at bf16 ({len(s16)} launches, one a segment; *_int8w the "
+                       "same at int8w, int8 staging); sums of per-segment medians; bound: the function's operations "
+                       "over the bf16 tensor-core peak or its bytes at the policy's widths over the memory rate; "
+                       "max_abs_err the worst bf16 gap to the plain version in phase 9e (int8 codes within 1); "
+                       "launches from one bf16 and one int8w request served under cuda_megakernel",
+            },
         ]
     }
 
@@ -1666,6 +1939,7 @@ def main(argv=None) -> int:
         phase_train(dev, size)
         phase_lm(dev, card, rehearsal)
         phase_reduced_forward(dev, size)
+        phase_reduced_megakernel(dev, size)
         phase_subvolume(dev, size, rehearsal)
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
@@ -1684,11 +1958,13 @@ def main(argv=None) -> int:
     check(views["launches"] > 0, "K5 was not launched on its path")
     k1r_err = phase_reduced_parity(dev)
     phase_reduced_forward(dev, size)
+    k2r_err = phase_reduced_megakernel(dev, size)
     launches["subvolume"] = phase_subvolume(dev, size, rehearsal)
     check(launches["subvolume"]["reduced"]["K1r"] > 0, "K1r was not launched on its main path")
-    k1r_rows = phase_reduced_times(dev, card, size)
+    check(launches["subvolume"]["reduced"]["K2r"] > 0, "K2r was not launched on its main path")
+    k1r_rows, k2r_rows = phase_reduced_times(dev, card, size)
     print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err, k4_err, lm["k4_row"], views,
-                                  k1r_rows, k1r_err)))
+                                  k1r_rows, k1r_err, k2r_rows, k2r_err)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

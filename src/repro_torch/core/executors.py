@@ -12,19 +12,21 @@ axis. Built-in executors, with the reference backend each is held to
                         kernel launch (K1) per hidden layer (reference
                         ``pallas_fused``).
   ``cuda_megakernel`` — ``ops.meshnet_apply_megakernel``, one depth-first
-                        kernel launch (K2) per segment of a plan that fits
-                        one block's shared memory (reference
-                        ``pallas_megakernel``); fp32 only so far.
+                        kernel launch (K2; K2r at bf16 and int8w) per
+                        segment of a plan that fits one block's shared
+                        memory (reference ``pallas_megakernel``).
   ``streaming``       — ``streaming.streaming_apply``, the two-live-buffer
                         layer loop (reference ``streaming``): plain PyTorch
                         by design, as the reference's is XLA.
 
 Every executor takes ``precision`` (kernels/quantize.py): fp32, or bf16
-and int8w, where ``cuda_fused`` launches K1r a layer and ``torch`` serves
-the plain reduced forward (``quantize.reference_apply``).
+and int8w, where ``cuda_fused`` launches K1r a layer, ``cuda_megakernel``
+K2r a segment (int8 staging between segments under int8w when the model
+has BatchNorm), and ``torch`` serves the plain reduced forward
+(``quantize.reference_apply``).
 
 On CPU tensors the kernels' plain versions run. ``hbm_bytes`` prices each
-kernel-backed schedule's device-memory traffic (telemetry/traffic.py).
+schedule's device-memory traffic (telemetry/traffic.py).
 
 ``"auto"`` resolves per device: ``cuda_fused`` on CUDA, ``torch`` on the
 CPU. The reference prefers its megakernel whenever the plan fits; the
@@ -70,7 +72,7 @@ REFERENCE_NAMES = {
 class ExecutorSpec:
     """One inference backend. ``hbm_bytes(cfg, vol, batch=1,
     precision="fp32")`` prices the schedule's device-memory traffic; None
-    where the schedule has no model (the plain forward)."""
+    where the schedule has no model."""
 
     name: str
     apply: ApplyFn
@@ -111,7 +113,7 @@ def default_executor(
     a card. Not ``cuda_megakernel``, though the reference prefers its
     megakernel: at fp32 on the CUDA cores K2 does the per-layer work plus
     the halo's recompute, so it waits until it beats the per-layer forward
-    on the card (see the module docstring), and it runs fp32 only."""
+    on the card (see the module docstring)."""
     if device is None:
         cuda = torch.cuda.is_available()
     else:
@@ -219,6 +221,7 @@ register(
         streaming_apply=streaming.streaming_apply,
         description="plain PyTorch forward (meshnet.apply; quantize.reference_apply "
         "at bf16/int8w); parity oracle",
+        hbm_bytes=traffic.meshnet_plain_bytes,
     )
 )
 

@@ -18,9 +18,8 @@ it; on the card every stage ends in a synchronisation so the times cover
 the work, not its launch.
 
 Not ported yet: ``shard_devices > 1`` (the multi-GPU slice) raises
-``ValueError``, and ``cuda_megakernel`` at bf16 or int8w raises
-``megakernel.PrecisionNotPorted``. Otherwise ``run`` never raises on a
-budget, plan or degenerate-volume failure: it returns a failed record.
+``ValueError``. Otherwise ``run`` never raises on a budget, plan or
+degenerate-volume failure: it returns a failed record.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ import torch
 from repro_torch import resolve_device, synchronize
 from repro_torch.core import components, conform as conform_mod, cropping, executors, patching
 from repro_torch.core.meshnet import MeshNetConfig
-from repro_torch.kernels import megakernel, quantize
+from repro_torch.kernels import quantize
 from repro_torch.telemetry.budget import BudgetExceeded, MemoryBudget
 from repro_torch.telemetry.record import StageTimes, TelemetryRecord
 
@@ -135,8 +134,6 @@ def run(
             executors.modeled_hbm_bytes(
                 exec_name, mask_model[1], cfg.volume_shape, precision=precision, device=dev
             )
-    except megakernel.PrecisionNotPorted:
-        raise
     except ValueError:
         rec.status = "fail"
         rec.fail_type = "vmem_oom"  # the reference's name for an unplannable schedule

@@ -32,9 +32,21 @@ quantisation of its blocks on the card's SMs.
 ``MegakernelPlan.operations`` counts K2's multiply-adds, halo recompute
 included, for the bound of a forward.
 
-A CUDA tensor launches K2 or raises; a CPU tensor takes the plain version
-(``kernels/ref.py::megakernel_segment``). ``launches`` counts kernel
-launches and nothing else.
+At the bf16 and int8w policies a plan is made at the policy's per-role
+byte widths (``plan_widths``: activations, weights, input, staging) and
+runs K2r (``csrc/megakernel_lp.cu``): the same segment with bf16 or int8
+staging arrays, bf16 or int8 weights widened to fp32 in shared memory,
+fp32 accumulation, one round to bf16 after every layer, and, under int8w
+with staging scales, the first layer's taps dequantised per channel
+(``deq``) and the last layer's output quantised to int8 (``qscale``).
+K2r's first layer reads its taps from device memory and widens them in
+registers instead of staging boxes, so its layout (``_smem_layout`` at
+reduced widths) has no ring, its own register table
+(``REGISTERS_LP``) and its own issue cost (``ISSUE_COST_LP``).
+
+A CUDA tensor launches K2 (K2r) or raises; a CPU tensor takes the plain
+version (``kernels/ref.py::megakernel_segment``). ``launches`` counts
+K2's launches and ``reduced_launches`` K2r's, and nothing else.
 """
 
 from __future__ import annotations
@@ -55,22 +67,22 @@ from repro_torch.kernels import dilated_conv3d as conv
 SMEM_BUDGET = _build.SMEM_LIMIT
 
 
-class PrecisionNotPorted(ValueError):
-    """K2 asked for a policy other than fp32. Not a planning failure: the
-    pipeline lets it through instead of recording an unplannable run."""
+#: per-role byte widths of a plan: (activations and logits, conv weights,
+#: the input volume, the inter-segment staging arrays).
+Widths = tuple[int, int, int, int]
+FP32_WIDTHS: Widths = (4, 4, 4, 4)
+_DTYPE_OF_WIDTH = {4: torch.float32, 2: torch.bfloat16, 1: torch.int8}
 
 
-def require_fp32(precision: str) -> None:
-    """Raise ``PrecisionNotPorted`` unless ``precision`` is fp32: K2 at the
-    bf16 and int8w policies (its int8 staging, ``deq_in`` and
-    ``quant_out``, and the planner's per-role widths) is ROADMAP Queue 2's
-    K2 item, the next slice of the port."""
-    if quantize.validate(precision) != "fp32":
-        raise PrecisionNotPorted(
-            f"cuda_megakernel runs fp32 only: K2 at precision {precision!r} (int8 staging, "
-            "the planner's per-role widths) comes with ROADMAP Queue 2's K2 item, the next "
-            "slice of the port; use executor 'cuda_fused' or precision 'fp32'"
-        )
+def plan_widths(precision: str, int8_staging: Optional[bool] = None) -> Widths:
+    """The (act, weight, input, staging) byte widths a plan prices at
+    ``precision`` (the reference's ``plan_widths``): int8w stages int8 only
+    when staging scales exist (BatchNorm statistics or a calibration
+    pass), else at the bf16 activation width."""
+    stg = quantize.staging_bytes(precision)
+    if precision == "int8w" and int8_staging is False:
+        stg = quantize.act_bytes(precision)
+    return (quantize.act_bytes(precision), quantize.weight_bytes(precision), quantize.input_bytes(precision), stg)
 
 #: per-axis tile candidates. Sizes below 8 and off the multiples of 8 let a
 #: segment whose hidden activations are large still fit one block. They
@@ -104,12 +116,24 @@ THREADS = 32 * WARPS
 #: tests/test_torch_gpu.py holds to the runtime's occupancy. An SM's
 #: 65,536 registers go to warps in units of 8 a thread.
 REGISTERS = {5: 224, 10: 222, 18: 201, 21: 226}
+#: the same for K2r (csrc/megakernel_lp.cu), the most over its bf16 and
+#: int8 input instantiations (at C = 18, 168: three blocks an SM).
+REGISTERS_LP = {5: 233, 10: 187, 18: 168, 21: 185}
 SM_REGISTERS = 65_536
 
-#: kernel launches since the counter was last reset (CPU calls don't count).
+#: K2r's first layer issues its FMAs at this cost against K2's: its taps
+#: are loaded from device memory and widened in registers, not read from a
+#: staged box, as K1r's are; K1r's layers ran 1.27x K1's on the same FMAs
+#: (PERF.md, chip_smoke.py phase 9d). Its hidden layers run K2's core.
+ISSUE_COST_LP = 1.27
+
+#: kernel launches since the counter was last reset (CPU calls don't
+#: count): K2's, and K2r's.
 launches = 0
+reduced_launches = 0
 
 _LIB = None
+_LIB_LP = None
 
 
 def _ceil_to(x, m):
@@ -175,17 +199,21 @@ def _row_groups(n, d, m):
     return n // (m * d) * d + np.minimum(n % (m * d), d)
 
 
-def _smem_layout(seg: Segment) -> tuple:
-    """(params, ping, pong, ring) in floats: what one block of K2 holds in
-    shared memory. params is every layer's weights (row stride C rounded
-    up to 4), then its bias, scale and offset (3 C rounded up to 4), then
-    the head's weights and bias when fused (rounded up to 4); ping and
-    pong hold the hidden layers' outputs (even and odd layers before the
-    last) at channel stride C | 1, rounded up to 4; ring is the first
-    layer's staging, two slots for each warp that has rows of its output
-    region (at most 4), each ceil4((t_x + 2 min(d, t_x)) (Cin | 1)) + 4
-    floats, t_x the region's x extent up to 32 R. The last layer's output
-    goes straight to device memory. Accepts numpy tiles."""
+def _smem_layout(seg: Segment, widths: Widths = FP32_WIDTHS) -> tuple:
+    """(params, ping, pong, ring) in floats: what one block of K2 (K2r at
+    reduced ``widths``) holds in shared memory. params is every layer's
+    weights as fp32 (row stride C rounded up to 4), then its bias, scale
+    and offset (3 C rounded up to 4), then the head's weights and bias when
+    fused (rounded up to 4), and for K2r the first layer's per-channel
+    dequant scales and the last layer's quantisation scales (cin + C,
+    rounded up to 4); ping and pong hold the hidden layers' outputs as
+    fp32 (even and odd layers before the last) at channel stride C | 1,
+    rounded up to 4; ring is K2's first-layer staging, two slots for each
+    warp that has rows of its output region (at most 4), each ceil4((t_x +
+    2 min(d, t_x)) (Cin | 1)) + 4 floats, t_x the region's x extent up to
+    32 R; K2r's first layer reads device memory directly and has none. The
+    last layer's output goes straight to device memory. Accepts numpy
+    tiles."""
     c, k = seg.channels, len(seg.dilations)
     _, m, cp, x_max = _blocking(c)
     params = 27 * seg.cin * cp + 27 * c * cp * (k - 1) + k * _ceil_to(3 * c, 4)
@@ -195,6 +223,8 @@ def _smem_layout(seg: Segment) -> tuple:
     hidden = [_ceil_to(_prod3(s) * (c | 1), 4) for s in sizes[1:k]]
     ping = functools.reduce(np.maximum, hidden[0::2]) if hidden else 0
     pong = functools.reduce(np.maximum, hidden[1::2]) if len(hidden) > 1 else 0
+    if widths != FP32_WIDTHS:
+        return params + _ceil_to(seg.cin + c, 4), ping, pong, 0
     s, d0 = sizes[1], seg.dilations[0]  # the first layer's output region
     tx = np.minimum(s[2], x_max)
     stagers = np.minimum(WARPS, s[0] * _row_groups(s[1], d0, m) * -(-s[2] // tx))  # warps that have rows of it
@@ -202,18 +232,32 @@ def _smem_layout(seg: Segment) -> tuple:
     return params, ping, pong, ring
 
 
-def _segment_smem_bytes(seg: Segment):
-    """Shared-memory bytes one block of K2 allocates for ``seg``."""
-    return 4 * sum(_smem_layout(seg))
+def _segment_smem_bytes(seg: Segment, widths: Widths = FP32_WIDTHS):
+    """Shared-memory bytes one block of K2 (K2r) allocates for ``seg``."""
+    return 4 * sum(_smem_layout(seg, widths))
 
 
-def _segment_hbm_bytes(seg: Segment, vol, batch: int = 1):
+def _in_out_widths(seg: Segment, widths: Widths) -> tuple[int, int]:
+    """Bytes an element of the segment's input and output staging arrays:
+    the input volume's width for the first segment, else the staging
+    width; the activation width for the fused head's logits, else the
+    staging width."""
+    act, _, inp, stg = widths
+    return (inp if seg.start == 0 else stg), (act if seg.fuse_head else stg)
+
+
+def _segment_hbm_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
     """Modeled device-memory bytes of one segment, the reference's formula
-    at fp32: per tile one haloed input window read and the weight stream,
-    and the central-region write. The data terms scale with ``batch``; the
-    weights are charged once per spatial tile (the batch members of a tile
-    are neighbouring blocks). The planner's DP objective and
-    ``MegakernelPlan.hbm_bytes`` both call this. Accepts numpy tiles."""
+    (its ``_segment_hbm_bytes``) at the per-role ``widths``: per tile one
+    haloed input window read at the input or staging width and the weight
+    stream at the weight width, and the central-region write at the
+    staging width (the activation width for the fused head's logits). The
+    data terms scale with ``batch``; the weights are charged once per
+    spatial tile (the batch members of a tile are neighbouring blocks).
+    The planner's tie-break and ``MegakernelPlan.hbm_bytes`` both call
+    this. Accepts numpy tiles."""
+    _, wt, _, _ = widths
+    ib, ob = _in_out_widths(seg, widths)
     padded = tuple(_ceil_to(v, t) for v, t in zip(vol, seg.tile))
     ntiles = _prod3(tuple(p // t for p, t in zip(padded, seg.tile)))
     window = _prod3(tuple(t + 2 * seg.halo for t in seg.tile))
@@ -221,32 +265,41 @@ def _segment_hbm_bytes(seg: Segment, vol, batch: int = 1):
     wgt = 27 * seg.cin * c + 27 * c * c * (k - 1)
     if seg.fuse_head:
         wgt += c * seg.num_classes
-    data = ntiles * window * seg.cin + _prod3(padded) * seg.cout
-    return 4 * (batch * data + ntiles * wgt)
+    data = ntiles * window * seg.cin * ib + _prod3(padded) * seg.cout * ob
+    return batch * data + ntiles * wgt * wt
 
 
-def _segment_device_bytes(seg: Segment, vol, batch: int = 1):
-    """Device-memory bytes of one segment's launch as K2 moves them on
-    Hopper: the volume read once from the input staging array, the written
-    region once, the parameters once. Neighbouring tiles' haloed windows
-    overlap; K2 reads a window row by row, and the model takes the rows
-    that neighbouring blocks share to come from the 50 MB L2, not from
-    device memory (not measured; the reference's formula,
-    ``_segment_hbm_bytes``, charges every tile its whole window). Accepts
-    numpy tiles."""
+def _segment_device_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
+    """Device-memory bytes of one segment's launch as K2 (K2r) moves them
+    on Hopper: the volume read once from the input staging array, the
+    written region once, each at its role's width, the parameters once
+    (conv weights at the weight width, the head's at the activation width,
+    bias, scale, offset and K2r's dequant and quantisation scales fp32).
+    Neighbouring tiles' haloed windows overlap; the kernel reads a window
+    row by row, and the model takes the rows that neighbouring blocks
+    share to come from the 50 MB L2, not from device memory (not measured;
+    the reference's formula, ``_segment_hbm_bytes``, charges every tile
+    its whole window). Accepts numpy tiles."""
+    act, wt, _, _ = widths
+    ib, ob = _in_out_widths(seg, widths)
     padded = _prod3(tuple(-(-v // t) * t for v, t in zip(vol, seg.tile)))
     c, k = seg.channels, len(seg.dilations)
-    n_params = 27 * seg.cin * c + 27 * c * c * (k - 1) + 3 * c * k
+    weights = (27 * seg.cin * c + 27 * c * c * (k - 1)) * wt
+    vectors = 3 * c * k
     if seg.fuse_head:
-        n_params += c * seg.num_classes + seg.num_classes
-    return 4 * (batch * (math.prod(vol) * seg.cin + padded * seg.cout) + n_params)
+        weights += c * seg.num_classes * act
+        vectors += seg.num_classes
+    if widths != FP32_WIDTHS:
+        vectors += seg.cin + c
+    data = math.prod(vol) * seg.cin * ib + padded * seg.cout * ob
+    return batch * data + weights + 4 * vectors
 
 
-def _input_pad_bytes(first: Segment, vol, batch: int = 1):
+def _input_pad_bytes(first: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
     """The copy of the input into the first staging array: read the volume,
-    write the padded array."""
+    write the padded array, at the input's width."""
     staged = _prod3(tuple(_ceil_to(v, t) + 2 * first.halo for v, t in zip(vol, first.tile)))
-    return 4 * batch * first.cin * (math.prod(vol) + staged)
+    return widths[2] * batch * first.cin * (math.prod(vol) + staged)
 
 
 def _segment_macs(seg: Segment, vol, batch: int = 1) -> int:
@@ -267,29 +320,34 @@ def _ntiles(seg: Segment, vol):
     return _prod3(tuple(-(-v // t) for v, t in zip(vol, seg.tile)))
 
 
-def _segment_issued_macs(seg: Segment, vol, batch: int = 1):
+def _segment_issued_macs(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
     """Multiply-adds as K2's warps issue them for one segment: per layer
     the region cut into items of M rows d apart x one chunk of 32 R voxels
     (rows and lanes past the region included), dealt to the block's 4
     warps in rounds (idle warps of the last round included), then the
-    fused head over the last layer's items. Accepts numpy tiles."""
+    fused head over the last layer's items. K2r deals the same items, its
+    first layer at ``ISSUE_COST_LP``. Accepts numpy tiles."""
     c = seg.channels
     _, m, _, x_max = _blocking(c)
     per_block = 0
     for i, (s, d) in enumerate(zip(_layer_sizes(seg.tile, seg.dilations)[1:], seg.dilations)):
         items = s[0] * _row_groups(s[1], d, m) * -(-s[2] // x_max)
         slots = -(-items // WARPS) * WARPS * m * x_max
-        per_block = per_block + slots * 27 * (seg.cin if i == 0 else c) * c
+        layer = slots * 27 * (seg.cin if i == 0 else c) * c
+        if i == 0 and widths != FP32_WIDTHS:
+            layer = layer * ISSUE_COST_LP
+        per_block = per_block + layer
     if seg.fuse_head:
         per_block = per_block + slots * c * seg.num_classes
     return batch * _ntiles(seg, vol) * per_block
 
 
-def _blocks_per_sm(smem_bytes, channels: int):
-    """Blocks of K2 one SM holds, by shared memory, threads and registers.
-    Accepts numpy arrays."""
+def _blocks_per_sm(smem_bytes, channels: int, widths: Widths = FP32_WIDTHS):
+    """Blocks of K2 (K2r) one SM holds, by shared memory, threads and
+    registers. Accepts numpy arrays."""
     by_smem = SM_SMEM_BYTES // (smem_bytes + BLOCK_SMEM_RESERVED)
-    regs = REGISTERS.get(channels, 255)  # a width K2 is not built for: the most a thread takes
+    table = REGISTERS if widths == FP32_WIDTHS else REGISTERS_LP
+    regs = table.get(channels, 255)  # a width the kernel is not built for: the most a thread takes
     by_regs = SM_REGISTERS // (_ceil_to(regs, 8) * THREADS)
     return np.minimum(np.minimum(by_smem, min(SM_THREADS // THREADS, by_regs)), 32)
 
@@ -302,29 +360,32 @@ def _wave_quantisation(blocks, per_sm):
     return np.ceil(waves) / waves
 
 
-def _segment_modeled_ms(seg: Segment, vol, batch: int = 1):
+def _segment_modeled_ms(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
     """Modeled device time of one segment's launch (ms): the larger of its
     issued multiply-adds over ``FMA_PER_S`` and its device-memory bytes
     (``_segment_device_bytes``) over ``HBM_BYTES_PER_S``, times the wave
     quantisation of its blocks. The planner's DP objective. Accepts numpy
     tiles."""
-    t_ops = _segment_issued_macs(seg, vol, batch) / FMA_PER_S
-    t_bytes = _segment_device_bytes(seg, vol, batch) / HBM_BYTES_PER_S
-    q = _wave_quantisation(batch * _ntiles(seg, vol), _blocks_per_sm(_segment_smem_bytes(seg), seg.channels))
+    t_ops = _segment_issued_macs(seg, vol, batch, widths) / FMA_PER_S
+    t_bytes = _segment_device_bytes(seg, vol, batch, widths) / HBM_BYTES_PER_S
+    per_sm = _blocks_per_sm(_segment_smem_bytes(seg, widths), seg.channels, widths)
+    q = _wave_quantisation(batch * _ntiles(seg, vol), per_sm)
     return 1e3 * q * np.maximum(t_ops, t_bytes)
 
 
-def _input_pad_ms(first: Segment, vol, batch: int = 1):
+def _input_pad_ms(first: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
     """Modeled time of the input's copy into the first staging array."""
-    return 1e3 * _input_pad_bytes(first, vol, batch) / HBM_BYTES_PER_S
+    return 1e3 * _input_pad_bytes(first, vol, batch, widths) / HBM_BYTES_PER_S
 
 
 @dataclasses.dataclass(frozen=True)
 class MegakernelPlan:
-    """Static execution plan: segments + geometry for one (cfg, volume)."""
+    """Static execution plan: segments + geometry for one (cfg, volume),
+    priced at ``widths`` (fp32 runs K2, reduced widths K2r)."""
 
     segments: tuple[Segment, ...]
     vol: tuple[int, int, int]  # true volume dims (pre-padding)
+    widths: Widths = FP32_WIDTHS
 
     def padded(self, seg: Segment) -> tuple[int, int, int]:
         """Tile-multiple dims of the region this segment computes."""
@@ -344,9 +405,13 @@ class MegakernelPlan:
         """Offset of segment i's written region in its output array."""
         return self.segments[i + 1].halo if i + 1 < len(self.segments) else 0
 
+    def dtypes(self, i: int) -> tuple[torch.dtype, torch.dtype]:
+        """dtypes of segment i's input and output staging arrays."""
+        return tuple(_DTYPE_OF_WIDTH[w] for w in _in_out_widths(self.segments[i], self.widths))
+
     def segment_hbm_bytes(self, i: int, batch: int = 1) -> int:
         """Modeled device-memory bytes of segment i's launch."""
-        return _segment_hbm_bytes(self.segments[i], self.vol, batch)
+        return _segment_hbm_bytes(self.segments[i], self.vol, batch, self.widths)
 
     def segment_operations(self, i: int, batch: int = 1) -> int:
         """Multiply-adds of segment i's launch, its halo recompute included."""
@@ -355,8 +420,9 @@ class MegakernelPlan:
     def hbm_bytes(self, batch: int = 1) -> int:
         """Modeled device-memory bytes of one forward: the input's copy into
         the first staging array, then every segment's window reads, weight
-        streams and writes. The planner minimises this same sum."""
-        total = _input_pad_bytes(self.segments[0], self.vol, batch)
+        streams and writes, each role at the plan's width (the reference's
+        ``MegakernelPlan.hbm_bytes``)."""
+        total = _input_pad_bytes(self.segments[0], self.vol, batch, self.widths)
         return total + sum(self.segment_hbm_bytes(i, batch) for i in range(len(self.segments)))
 
     def operations(self, batch: int = 1) -> int:
@@ -371,19 +437,20 @@ class MegakernelPlan:
     def segment_waves(self, i: int, batch: int = 1) -> float:
         """Waves of segment i's blocks on the card's SMs."""
         seg = self.segments[i]
-        per_sm = int(_blocks_per_sm(_segment_smem_bytes(seg), seg.channels))
+        per_sm = int(_blocks_per_sm(_segment_smem_bytes(seg, self.widths), seg.channels, self.widths))
         return self.segment_blocks(i, batch) / (SMS * per_sm)
 
     def segment_modeled_ms(self, i: int, batch: int = 1) -> float:
         """Modeled device time of segment i's launch (ms)."""
-        return float(_segment_modeled_ms(self.segments[i], self.vol, batch))
+        return float(_segment_modeled_ms(self.segments[i], self.vol, batch, self.widths))
 
     def modeled_ms(self, batch: int = 1) -> float:
         """Modeled device time of one forward (ms): the input's copy into
         the first staging array, then every segment's launch. The planner
         minimises this same sum."""
-        total = float(_input_pad_ms(self.segments[0], self.vol, batch))
+        total = float(_input_pad_ms(self.segments[0], self.vol, batch, self.widths))
         return total + sum(self.segment_modeled_ms(i, batch) for i in range(len(self.segments)))
+
 
 
 def _axis_candidates(v: int) -> list[int]:
@@ -403,15 +470,17 @@ def plan(
     *,
     smem_budget: int = SMEM_BUDGET,
     precision: str = "fp32",
+    int8_staging: Optional[bool] = None,
     batch: int = 1,
 ) -> MegakernelPlan:
     """Choose segment boundaries and per-axis tiles by DP over the modeled
-    device-memory bytes, subject to every segment's shared memory fitting
-    ``smem_budget``. Only fp32 is ported: another policy raises
-    ``PrecisionNotPorted``. Raises ValueError naming the layer that cannot
-    fit, even alone. Memoised: the serving path plans the same (model,
-    volume) for the byte model and for the forward."""
-    require_fp32(precision)
+    device time, subject to every segment's shared memory fitting
+    ``smem_budget``, at ``precision``'s per-role widths (``plan_widths``;
+    ``int8_staging`` matters under int8w only). Raises ValueError naming
+    the layer that cannot fit, even alone. Memoised per (model, volume,
+    budget, precision, staging, batch): the serving path plans the same
+    request for the byte model and for the forward."""
+    precision = quantize.validate(precision)
     return _plan_cached(
         tuple(int(d) for d in dilations),
         int(in_channels),
@@ -419,6 +488,8 @@ def plan(
         int(num_classes),
         tuple(int(v) for v in vol),
         int(smem_budget),
+        precision,
+        precision == "int8w" and int8_staging is not False,
         int(batch),
     )
 
@@ -429,9 +500,14 @@ def plan_for_config(
     *,
     smem_budget: int = SMEM_BUDGET,
     precision: str = "fp32",
+    int8_staging: Optional[bool] = None,
     batch: int = 1,
 ) -> MegakernelPlan:
-    """``plan`` from a MeshNetConfig-shaped object."""
+    """``plan`` from a MeshNetConfig-shaped object. Under int8w, int8
+    staging defaults to whether the config has BatchNorm statistics to
+    bound the staging scales with (``quantize.staging_scales_from_bn``)."""
+    if int8_staging is None:
+        int8_staging = bool(cfg.use_batchnorm)
     return plan(
         cfg.dilations,
         cfg.in_channels,
@@ -440,11 +516,12 @@ def plan_for_config(
         vol,
         smem_budget=smem_budget,
         precision=precision,
+        int8_staging=int8_staging,
         batch=batch,
     )
 
 
-def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch):
+def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, widths: Widths = FP32_WIDTHS):
     """(least modeled ms, segments) over every split of the schedule into
     segments and every tile of each. A segment's time does not depend on
     the other segments, so best[i], the least time of layers i.., is the
@@ -472,15 +549,15 @@ def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch):
     for i in range(n - 1, -1, -1):
         for j in range(i + 1, min(n, i + MAX_LAYERS) + 1):
             seg = seg_for(i, j, grids)
-            ms = _segment_modeled_ms(seg, vol, batch)
+            ms = _segment_modeled_ms(seg, vol, batch, widths)
             if i == 0:
-                ms = ms + _input_pad_ms(seg, vol, batch)
-            cost = np.where(_segment_smem_bytes(seg) <= smem_budget, ms, inf).reshape(-1)
+                ms = ms + _input_pad_ms(seg, vol, batch, widths)
+            cost = np.where(_segment_smem_bytes(seg, widths) <= smem_budget, ms, inf).reshape(-1)
             least = float(cost.min())
             if least == inf:
                 continue
             ties = np.flatnonzero(cost <= least * (1 + 1e-12))
-            hbm = np.broadcast_to(_segment_hbm_bytes(seg, vol, batch), grids[0].shape).reshape(-1)
+            hbm = np.broadcast_to(_segment_hbm_bytes(seg, vol, batch, widths), grids[0].shape).reshape(-1)
             flat = int(ties[np.argmin(hbm[ties])])
             c = float(cost[flat]) + best[j]
             if c < best[i]:
@@ -497,8 +574,10 @@ def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch):
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_cached(dils, in_channels, channels, num_classes, vol, smem_budget, batch) -> MegakernelPlan:
-    _, segments = _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch)
+def _plan_cached(dils, in_channels, channels, num_classes, vol, smem_budget, precision, int8_staging,
+                 batch) -> MegakernelPlan:
+    widths = plan_widths(precision, int8_staging)
+    _, segments = _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, widths)
     if segments is None:
         # Every layer alone is a valid segment, and a one-layer segment
         # holds only its parameters on chip, whatever its tile: so some
@@ -508,7 +587,7 @@ def _plan_cached(dils, in_channels, channels, num_classes, vol, smem_budget, bat
         for i in range(n):
             seg = Segment(i, dils[i : i + 1], in_channels if i == 0 else channels, channels,
                           (TILE_CANDIDATES[0],) * 3, i == n - 1, num_classes)
-            needs.append((_segment_smem_bytes(seg), -i, seg))
+            needs.append((_segment_smem_bytes(seg, widths), -i, seg))
         need, _, seg = max(needs)
         head = ", fused head" if seg.fuse_head else ""
         raise ValueError(
@@ -517,10 +596,10 @@ def _plan_cached(dils, in_channels, channels, num_classes, vol, smem_budget, bat
             f"of shared memory, over the {smem_budget}-byte budget; reduce the channel "
             f"width or raise smem_budget"
         )
-    return MegakernelPlan(segments=segments, vol=vol)
+    return MegakernelPlan(segments=segments, vol=vol, widths=widths)
 
 
-# ------------------------------------------------------------------ K2 ---
+# ------------------------------------------------------------- K2, K2r ---
 
 
 def _kernel():
@@ -540,7 +619,36 @@ def _kernel():
     return _LIB
 
 
-def _check_operands(x, pln: MegakernelPlan, i: int, layers, head):
+def _kernel_lp():
+    global _LIB_LP
+    if _LIB_LP is None:
+        lib = _build.load("megakernel_lp")
+        # (x, x_int8, w, hw, vec, out, out_int8, geom, n, stream)
+        for fn in (lib.repro_megakernel_segment_bf16, lib.repro_megakernel_segment_int8w):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.repro_megakernel_lp_supports.argtypes = [ctypes.c_int]
+        lib.repro_megakernel_lp_supports.restype = ctypes.c_int
+        lib.repro_megakernel_lp_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        lib.repro_megakernel_lp_blocks_per_sm.restype = ctypes.c_int
+        lib.repro_megakernel_lp_error_string.argtypes = [ctypes.c_int]
+        lib.repro_megakernel_lp_error_string.restype = ctypes.c_char_p
+        _LIB_LP = lib
+    return _LIB_LP
+
+
+def scale_operands(pln: MegakernelPlan, i: int) -> tuple[bool, bool]:
+    """(deq, qscale): whether segment i of a reduced plan takes per-channel
+    dequant scales for its int8 input staging (the previous segment's last
+    quantisation scales; the first segment's int8 input carries its scale
+    in the first layer's epilogue instead) and quantisation scales for its
+    int8 output."""
+    x_dtype, out_dtype = pln.dtypes(i)
+    return pln.segments[i].start > 0 and x_dtype == torch.int8, out_dtype == torch.int8
+
+
+def _check_operands(x, pln: MegakernelPlan, i: int, layers, head, deq=None, qscale=None):
     seg = pln.segments[i]
     if x.ndim != 5 or x.shape[-1] != seg.cin:
         raise ValueError(f"x must be (B, Z, Y, X, {seg.cin}), got shape {tuple(x.shape)}")
@@ -563,27 +671,53 @@ def _check_operands(x, pln: MegakernelPlan, i: int, layers, head):
         tuple(head[0].shape) != (c, seg.num_classes) or tuple(head[1].shape) != (seg.num_classes,)
     ):
         raise ValueError(f"head must be ({c}, {seg.num_classes}) and ({seg.num_classes},)")
+    if pln.widths == FP32_WIDTHS:
+        if deq is not None or qscale is not None:
+            raise ValueError("an fp32 plan takes no staging scales")
+        return
+    # a reduced plan: the staging arrays, weights and scales at its widths
+    want_deq, want_q = scale_operands(pln, i)
+    if (deq is not None) != want_deq or (qscale is not None) != want_q:
+        raise ValueError(f"segment {i} takes deq {'(cin,)' if want_deq else 'None'} and qscale "
+                         f"{'(C,)' if want_q else 'None'}")
+    if deq is not None and (tuple(deq.shape) != (seg.cin,) or deq.dtype != torch.float32):
+        raise ValueError(f"deq must be ({seg.cin},) float32")
+    if qscale is not None and (tuple(qscale.shape) != (c,) or qscale.dtype != torch.float32):
+        raise ValueError(f"qscale must be ({c},) float32")
+    x_dtype, _ = pln.dtypes(i)
+    w_dtype = _DTYPE_OF_WIDTH[pln.widths[1]]
+    if x.dtype != x_dtype:
+        raise TypeError(f"segment {i} of this plan reads a {x_dtype} staging array, got {x.dtype}")
+    for li, (w, *vecs) in enumerate(layers):
+        if w.dtype != w_dtype or any(t.dtype != torch.float32 for t in vecs):
+            raise TypeError(f"layer {li}: w must be {w_dtype} and b, scale, offset float32")
+    if head is not None and (head[0].dtype != torch.bfloat16 or head[1].dtype != torch.float32):
+        raise TypeError("the head's w must be bfloat16 and its b float32 at a reduced policy")
 
 
-def blocks_per_sm(seg: Segment) -> int:
-    """Blocks of ``seg`` one SM holds, from the built K2 (the runtime's
-    occupancy calculator), against which ``_blocks_per_sm`` models it. On
-    the card only."""
-    return int(_kernel().repro_megakernel_blocks_per_sm(seg.channels, seg.cin, int(_segment_smem_bytes(seg))))
+def blocks_per_sm(seg: Segment, widths: Widths = FP32_WIDTHS) -> int:
+    """Blocks of ``seg`` one SM holds, from the built K2 (K2r at reduced
+    ``widths``; the runtime's occupancy calculator), against which
+    ``_blocks_per_sm`` models it. On the card only."""
+    smem = int(_segment_smem_bytes(seg, widths))
+    if widths == FP32_WIDTHS:
+        return int(_kernel().repro_megakernel_blocks_per_sm(seg.channels, seg.cin, smem))
+    x_int8 = _in_out_widths(seg, widths)[0] == 1
+    return int(_kernel_lp().repro_megakernel_lp_blocks_per_sm(seg.channels, int(x_int8), smem))
 
 
 def geometry(x_shape: tuple, pln: MegakernelPlan, i: int) -> list[int]:
-    """The geometry array K2's entry point takes for segment ``i`` of
-    ``pln`` on an input staging array of shape ``x_shape``: B, cin, C, k,
-    classes (0 without the head), vol, tile, the input's dims and halo,
+    """The geometry array K2's (K2r's) entry point takes for segment ``i``
+    of ``pln`` on an input staging array of shape ``x_shape``: B, cin, C,
+    k, classes (0 without the head), vol, tile, the input's dims and halo,
     the output's dims and halo, the shared-memory layout (params, ping,
-    pong, ring floats; K2 checks it against its own), then the
+    pong, ring floats; the kernel checks it against its own), then the
     dilations."""
     seg = pln.segments[i]
     return [
         x_shape[0], seg.cin, seg.channels, len(seg.dilations), seg.num_classes if seg.fuse_head else 0,
         *pln.vol, *seg.tile, *x_shape[1:4], seg.halo, *pln.out_dims(i), pln.out_halo(i),
-        *(int(v) for v in _smem_layout(seg)), *seg.dilations,
+        *(int(v) for v in _smem_layout(seg, pln.widths)), *seg.dilations,
     ]
 
 
@@ -593,50 +727,83 @@ def run_segment(
     i: int,
     layers: Sequence[tuple],
     head: Optional[tuple] = None,
+    deq: Optional[torch.Tensor] = None,
+    qscale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Segment ``i`` of ``pln`` on the staging array ``x``: (B, Z, Y, X,
     cin) holding the volume at offset ``segments[i].halo`` (its border is
     never read). ``layers`` gives each layer's (w, b, scale, offset), the
-    folded BatchNorm in scale and offset; ``head`` the fused head's (w (C,
-    classes), b) when the segment fuses it. Returns the output staging
-    array (B, *pln.out_dims(i), cout) whose region [out_halo(i), out_halo(i)
-    + padded) is written and whose border is not.
+    folded BatchNorm (and an int8 dequant scale) in scale and offset;
+    ``head`` the fused head's (w (C, classes), b) when the segment fuses
+    it. Returns the output staging array (B, *pln.out_dims(i), cout) whose
+    region [out_halo(i), out_halo(i) + padded) is written and whose border
+    is not.
 
-    On CUDA every tensor must be contiguous fp32 on x's device, the width
-    one the kernel is instantiated for (5, 10, 18, 21), and the segment's
+    An fp32 plan runs K2: every tensor fp32. A reduced plan runs K2r at
+    its widths (``pln.dtypes``): a bf16 or int8 staging array in and out
+    (bf16 logits), bf16 or int8 weights, fp32 bias, scale and offset, a
+    bf16 head weight; ``deq`` (cin,) fp32 scales its int8 input staging
+    and ``qscale`` (C,) fp32 quantises its int8 output, exactly when
+    ``scale_operands`` says.
+
+    On CUDA every tensor must be contiguous on x's device, the width one
+    the kernel is instantiated for (5, 10, 18, 21), and the segment's
     shared memory within one block."""
-    global launches
-    _check_operands(x, pln, i, layers, head)
+    global launches, reduced_launches
+    _check_operands(x, pln, i, layers, head, deq, qscale)
     if x.device.type == "cpu":
-        return ref.megakernel_segment(x, pln, i, layers, head)
+        return ref.megakernel_segment(x, pln, i, layers, head, deq, qscale)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    tensors = [x] + [t for layer in layers for t in layer] + list(head or ())
+    reduced = pln.widths != FP32_WIDTHS
+    tensors = [x] + [t for layer in layers for t in layer] + list(head or ()) + [t for t in (deq, qscale) if t is not None]
     for t in tensors:
-        if t.dtype != torch.float32:
+        if not reduced and t.dtype != torch.float32:
             raise TypeError(f"the CUDA kernel takes float32 only, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous tensors only")
     seg = pln.segments[i]
-    lib = _kernel()
-    if not lib.repro_megakernel_supports(seg.channels):
+    lib = _kernel_lp() if reduced else _kernel()
+    supports = lib.repro_megakernel_lp_supports if reduced else lib.repro_megakernel_supports
+    if not supports(seg.channels):
         raise ValueError(f"the CUDA kernel is not instantiated for Cout={seg.channels}")
     if len(seg.dilations) > MAX_LAYERS:
         raise ValueError(f"a segment holds at most {MAX_LAYERS} layers, got {len(seg.dilations)}")
-    smem = _segment_smem_bytes(seg)
+    smem = _segment_smem_bytes(seg, pln.widths)
     if smem > SMEM_BUDGET:
         raise ValueError(f"segment {i} needs {smem} bytes of shared memory, over the {SMEM_BUDGET} one block can use")
-    params = torch.cat([t.reshape(-1) for t in tensors[1:]])
-    out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=torch.float32, device=x.device)
+    _, out_dtype = pln.dtypes(i)
+    out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=out_dtype, device=x.device)
     geom = geometry(tuple(x.shape), pln, i)
     geom_c = (ctypes.c_int * len(geom))(*geom)
-    err = lib.repro_megakernel_segment_f32(
-        x.data_ptr(), params.data_ptr(), out.data_ptr(), geom_c, len(geom),
-        torch.cuda.current_stream(x.device).cuda_stream,
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if not reduced:
+        params = torch.cat([t.reshape(-1) for t in tensors[1:]])
+        err = lib.repro_megakernel_segment_f32(x.data_ptr(), params.data_ptr(), out.data_ptr(), geom_c, len(geom), stream)
+        if err != 0:
+            raise RuntimeError(f"megakernel launch failed: {lib.repro_megakernel_error_string(err).decode()}")
+        launches += 1
+        return out
+    # K2r: the conv weights at their width, the head's bf16 weights, then
+    # one fp32 vector: each layer's bias, scale, offset, the head's bias,
+    # the dequant scales (ones: the first layer's taps taken as they are)
+    # and the quantisation scales (ones when the output is bf16)
+    w = torch.cat([layer[0].reshape(-1) for layer in layers])
+    vec = [t for layer in layers for t in layer[1:]]
+    if head is not None:
+        vec.append(head[1])
+    vec.append(deq if deq is not None else torch.ones(seg.cin, device=x.device))
+    vec.append(qscale if qscale is not None else torch.ones(seg.channels, device=x.device))
+    vec = torch.cat(vec)
+    hw = head[0] if head is not None else None
+    entry = lib.repro_megakernel_segment_int8w if w.dtype == torch.int8 else lib.repro_megakernel_segment_bf16
+    err = entry(
+        x.data_ptr(), int(x.dtype == torch.int8), w.data_ptr(), None if hw is None else hw.data_ptr(),
+        vec.data_ptr(), out.data_ptr(), int(out.dtype == torch.int8), geom_c, len(geom), stream,
     )
     if err != 0:
-        raise RuntimeError(f"megakernel launch failed: {lib.repro_megakernel_error_string(err).decode()}")
-    launches += 1
+        raise RuntimeError(f"reduced megakernel launch failed: {lib.repro_megakernel_lp_error_string(err).decode()}")
+    reduced_launches += 1
     return out

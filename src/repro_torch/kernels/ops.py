@@ -8,8 +8,9 @@ kernel masks the volume's edges itself, so no padding to a block multiple
 is needed.
 
 ``meshnet_apply_megakernel`` is the ``cuda_megakernel`` backend: one call
-of K2 per segment of a depth-first plan (kernels/megakernel.py), so the
-hidden activations inside a segment never reach device memory.
+of K2 (K2r at the bf16 and int8w policies) per segment of a depth-first
+plan (kernels/megakernel.py), so the hidden activations inside a segment
+never reach device memory.
 
 ``dice`` is macro Dice from hard labels through K3, the per-class count
 kernel (kernels/dice.py): one launch per call on the card.
@@ -104,38 +105,81 @@ def meshnet_apply_megakernel(
     *,
     pln: Optional[mega_kernel.MegakernelPlan] = None,
     precision: str = "fp32",
+    staging_scales: Optional[list] = None,
 ) -> torch.Tensor:
     """Depth-first MeshNet forward (== meshnet.apply, eval mode): one K2
     launch per segment of ``pln`` (planned here when not given), the head
     fused into the last. The input is copied into the first staging array
     at the first segment's halo offset; every later staging array is a
-    segment's output. fp32 only: another policy raises
-    ``megakernel.PrecisionNotPorted``."""
-    mega_kernel.require_fp32(precision)
+    segment's output.
+
+    ``precision`` "bf16" and "int8w" (the reference's
+    ``megakernel.meshnet_apply``) launch K2r a segment on a plan made at
+    the policy's widths: the params are prepared (``prepare_params``, a
+    no-op on a prepared tree) and every layer's epilogue is
+    ``fold_epilogue``'s. Under bf16 the input is cast to bf16. Under
+    int8w the input is quantised to int8 (an int8 input is taken as
+    already quantised) and stays int8 in the first staging array, its
+    ``INPUT_SCALE`` folded into layer 0's epilogue scale; the staging
+    between segments is int8 with ``staging_scales`` (one (C,) fp32 scale
+    per hidden layer; ``quantize.staging_scales_from_bn`` when not given),
+    or bf16 when the model has no BatchNorm and none are given. The
+    logits are bf16."""
     if x.ndim == 4:
         x = x[..., None]
     B, D, H, W, _ = x.shape
     vol = (D, H, W)
+    if quantize.validate(precision) == "fp32":
+        x = x.float()
+        staging_scales = None
+    else:
+        params = quantize.prepare_params(params, cfg, precision)
+        if precision == "int8w":
+            if x.dtype != torch.int8:
+                x = quantize.quantize_input(x)
+            if staging_scales is None:
+                staging_scales = quantize.staging_scales_from_bn(params, cfg)
+        else:
+            x = quantize.cast_input(x, precision)
+            staging_scales = None
     if pln is None:
-        pln = mega_kernel.plan_for_config(cfg, vol, batch=B)
+        pln = mega_kernel.plan_for_config(
+            cfg, vol, precision=precision, int8_staging=staging_scales is not None, batch=B
+        )
     elif pln.vol != vol:
         raise ValueError(f"plan is for volume {pln.vol}, input is {vol}")
+    elif pln.widths != mega_kernel.plan_widths(precision, staging_scales is not None):
+        raise ValueError(f"plan is for widths {pln.widths}, not precision {precision!r}'s")
     first = pln.segments[0]
     h = first.halo
     pad = sum(((h, h + p - v) for p, v in zip(pln.padded(first)[::-1], vol[::-1])), ())
-    act = F.pad(x.float(), (0, 0) + pad)
+    act = F.pad(x, (0, 0) + pad)
     for i, seg in enumerate(pln.segments):
-        act = mega_kernel.run_segment(act, pln, i, *megakernel_operands(params, cfg, seg))
+        layers, head = megakernel_operands(params, cfg, seg, precision)
+        deq, qscale = mega_kernel.scale_operands(pln, i)
+        act = mega_kernel.run_segment(
+            act, pln, i, layers, head,
+            staging_scales[seg.start - 1] if deq else None,
+            staging_scales[seg.start + len(seg.dilations) - 1] if qscale else None,
+        )
     return act[:, :D, :H, :W, :]
 
 
-def megakernel_operands(params, cfg, seg: mega_kernel.Segment) -> tuple[list, Optional[tuple]]:
+def megakernel_operands(params, cfg, seg: mega_kernel.Segment, precision: str = "fp32") -> tuple[list, Optional[tuple]]:
     """(layers, head) of one segment as ``megakernel.run_segment`` takes
     them: each layer's (w, b, scale, offset) with the BatchNorm folded
     (scale 1 and offset 0 without it), and the head's (w (C, classes), b)
-    when the segment fuses it."""
+    when the segment fuses it. At a reduced policy (``params`` prepared)
+    each layer is ``(w, *fold_epilogue(layer))``, and under int8w layer 0's
+    scale carries the input's ``INPUT_SCALE``."""
     layers = []
-    for layer in params["layers"][seg.start : seg.start + len(seg.dilations)]:
+    for li, layer in enumerate(params["layers"][seg.start : seg.start + len(seg.dilations)]):
+        if precision != "fp32":
+            bias, scale, offset = quantize.fold_epilogue(layer, cfg.use_batchnorm)
+            if precision == "int8w" and seg.start + li == 0:
+                scale = scale * quantize.INPUT_SCALE
+            layers.append((layer["w"], bias, scale, offset))
+            continue
         if cfg.use_batchnorm:
             scale, offset = fold_batchnorm(layer)
         else:

@@ -6,7 +6,8 @@ Three storage policies, as the reference's:
               forward.
   ``bf16``  — conv and head weights and the activations are bfloat16;
               every conv accumulates in fp32 and rounds once per layer,
-              at its output write (K1r, ``csrc/dilated_conv3d_lp.cu``).
+              at its output write (K1r, ``csrc/dilated_conv3d_lp.cu``;
+              K2r, ``csrc/megakernel_lp.cu``, inside a segment too).
   ``int8w`` — per-output-channel symmetric int8 conv weights, their
               dequant scale folded into the fp32 epilogue
               (``fold_epilogue``), bf16 activations, fp32 accumulation;
@@ -14,10 +15,13 @@ Three storage policies, as the reference's:
               ``INPUT_SCALE``.
 
 Every role has its byte width (``act_bytes``, ``weight_bytes``,
-``input_bytes``, ``staging_bytes``), the reference's. The megakernel's
-int8 staging (``staging_scales_from_bn``, ``calibrate``,
-``quantize_staging``) comes with K2 at reduced widths (ROADMAP Queue 2,
-K2): ``cuda_megakernel`` runs fp32 only until then.
+``input_bytes``, ``staging_bytes``), the reference's. Under int8w the
+megakernel (K2r) also stages its inter-segment activations as int8, with
+static per-channel scales (``staging_scales_from_bn``, or ``calibrate``
+from a probe forward; ``quantize_staging`` is the rounding), and reads
+the conformed input as int8 codes, ``INPUT_SCALE`` folded into its first
+layer's epilogue. Without BatchNorm there is no bound to derive the
+scales from, and the megakernel stages bf16.
 
 Rounding: ``torch.round`` rounds half to even, as ``jnp.round`` does, and
 each scale division divides by a tensor on the operand's device, so a
@@ -40,6 +44,9 @@ AUTO = "auto"
 #: fixed dequant scale of the int8-quantized conformed input volume
 #: (conform gives [0, 1]; symmetric int8 over that range).
 INPUT_SCALE = 1.0 / 127.0
+
+#: sigma multiplier of the BatchNorm-derived int8 staging bound.
+BN_BOUND_SIGMA = 6.0
 
 _ACT_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8w": torch.bfloat16}
 #: bytes per element by tensor role: ``act`` the activations and logits,
@@ -108,9 +115,10 @@ def resolve_precision(name: Optional[str], model: Any = None) -> str:
 def _div(x: torch.Tensor, s) -> torch.Tensor:
     """``x / s`` in fp32 as a true division, a scalar ``s`` taken as a
     tensor on x's device (a CPU scalar divisor may become a multiply by its
-    reciprocal, which rounds differently)."""
+    reciprocal, which rounds differently), filled there rather than copied
+    from the host, which would wait for the card."""
     if not isinstance(s, torch.Tensor):
-        s = torch.tensor(s, dtype=torch.float32, device=x.device)
+        s = torch.full((), s, dtype=torch.float32, device=x.device)
     return torch.div(x, s)
 
 
@@ -235,6 +243,47 @@ def model_params_bytes(cfg: Any, precision: str = "fp32") -> int:
         cin = cfg.channels
     total += cfg.channels * cfg.num_classes * hb + cfg.num_classes * 4
     return total
+
+
+# --------------------------------------------------- staging activation ---
+
+
+def staging_scales_from_bn(params: Any, cfg: Any) -> Optional[list]:
+    """One (C,) fp32 int8 staging scale per hidden layer from its BatchNorm
+    statistics: post-BN activations are about N(bn_bias, bn_scale^2), so
+    after the ReLU the bound is ``relu(bn_bias) + BN_BOUND_SIGMA *
+    |bn_scale|``, and the scale is that bound over 127. None without
+    BatchNorm (the megakernel then stages bf16)."""
+    if not cfg.use_batchnorm:
+        return None
+    scales = []
+    for layer in params["layers"]:
+        bound = torch.relu(layer["bn_bias"].float()) + BN_BOUND_SIGMA * torch.abs(layer["bn_scale"].float())
+        scales.append(_div(torch.clamp_min(bound, 1e-6), 127.0))
+    return scales
+
+
+def calibrate(params: Any, cfg: Any, x: torch.Tensor, margin: float = 1.25) -> list:
+    """One (C,) fp32 staging scale per hidden layer from a probe forward:
+    the fp32 plain forward (``meshnet.apply_layer``) on ``x``, each layer's
+    per-channel largest magnitude times ``margin``, over 127."""
+    from repro_torch.core import meshnet
+
+    if x.ndim == 4:
+        x = x[..., None]
+    x = x.float()
+    scales = []
+    for i, d in enumerate(cfg.dilations):
+        x, _ = meshnet.apply_layer(params["layers"][i], x, d, cfg)
+        amax = torch.amax(torch.abs(x), dim=tuple(range(x.ndim - 1)))
+        scales.append(_div(torch.clamp_min(amax * margin, 1e-6), 127.0))
+    return scales
+
+
+def quantize_staging(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Activations -> int8 with a per-channel static scale: a true division,
+    rounded half to even, saturated at +-127."""
+    return torch.clamp(torch.round(torch.div(x.float(), scale)), -127, 127).to(torch.int8)
 
 
 # ------------------------------------------------------------ reference ---

@@ -4,7 +4,7 @@ Each is the CPU path of its kernel's wrapper and, on the card, the version
 ``chip_smoke.py`` holds the kernel against. They repeat the kernel's
 arithmetic in plain tensor code and are no yardstick of speed:
 ``dilated_conv3d`` for K1 and K5 and, on a bf16 input, K1r,
-``megakernel_segment`` for K2,
+``megakernel_segment`` for K2 and, on a bf16 or int8 staging array, K2r,
 ``dice_counts`` for K3, ``decode_attention`` for K4.
 """
 
@@ -69,29 +69,51 @@ def dilated_conv3d(
     return out.to(x.dtype)
 
 
-def megakernel_segment(x: torch.Tensor, pln, i: int, layers, head=None) -> torch.Tensor:
+def megakernel_segment(x: torch.Tensor, pln, i: int, layers, head=None, deq=None, qscale=None) -> torch.Tensor:
     """Segment ``i`` of a megakernel plan, the same staging arrays in and
-    out as K2 (``kernels/megakernel.py::run_segment``), computed layer by
-    layer over the whole volume instead of tile by tile.
+    out as K2 and K2r (``kernels/megakernel.py::run_segment``), computed
+    layer by layer over the whole volume instead of tile by tile.
 
     K2 masks every position outside the true volume to zero after each
     layer but the last, so per voxel its result is that of 'same'-padded
     layers over the volume; the last layer also covers the tile-padded
     region beyond it, reading zeros there. The output array's border is
-    left unwritten, as K2 leaves it."""
+    left unwritten, as K2 leaves it.
+
+    A bf16 or int8 staging array is K2r's, with its rounding points: the
+    taps widened to fp32 (an int8 code times ``deq`` when given, one fp32
+    rounding), each layer summed and its epilogue applied in fp32, the
+    output rounded to bf16 after every layer; the last layer's fp32 output
+    quantised to int8 (``quantize_staging``'s arithmetic) when ``qscale``
+    is given, else rounded to bf16, and the fused head summed in fp32 over
+    the bf16 activations and its bf16 weights, its bias added, then one
+    round to bf16."""
     seg = pln.segments[i]
     h = seg.halo
     vol = pln.vol
     padded = pln.padded(seg)
+    reduced = x.dtype != torch.float32
     act = x[:, h : h + vol[0], h : h + vol[1], h : h + vol[2], :]
+    if reduced:
+        act = act.float() if deq is None else act.float() * deq
+    last = len(layers) - 1
     for li, ((w, b, scale, offset), d) in enumerate(zip(layers, seg.dilations)):
-        if li == len(layers) - 1:
+        if li == last:
             act = F.pad(act, (0, 0) + sum(((0, p - v) for p, v in zip(padded[::-1], vol[::-1])), ()))
         act = dilated_conv3d(act, w, b, dilation=d, scale=scale, offset=offset, fuse_affine=True)
-    if head is not None:
+        if reduced and not (li == last and qscale is not None):
+            act = act.to(torch.bfloat16).float()
+    if reduced:
+        if qscale is not None:
+            act = torch.clamp(torch.round(torch.div(act, qscale)), -127, 127).to(torch.int8)
+        elif head is not None:
+            act = (torch.matmul(act, head[0].float()) + head[1]).to(torch.bfloat16)
+        else:
+            act = act.to(torch.bfloat16)
+    elif head is not None:
         act = torch.matmul(act, head[0]) + head[1]
     o = pln.out_halo(i)
-    out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=x.dtype, device=x.device)
+    out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=act.dtype, device=x.device)
     out[:, o : o + padded[0], o : o + padded[1], o : o + padded[2], :] = act
     return out
 

@@ -40,18 +40,18 @@ class TelemetryRecord:
     status: str  # ok | fail
     times: StageTimes
     # which forward backend ran (core/executors.py): torch | cuda_fused |
-    # cuda_megakernel —
+    # cuda_megakernel | streaming —
     # the server-side analogue of the paper logging the WebGL vs WASM
     # backend per run.
     executor: Optional[str] = None
     # modeled device-memory bytes the executor's schedule moves for this
-    # run's inference (telemetry/traffic.py); None for the plain forward.
+    # run's inference (telemetry/traffic.py), at the run's precision.
     hbm_bytes_modeled: Optional[int] = None
     # modeled inter-device bytes of the run's halo exchanges — 0 for the
     # single-device executors the port has so far.
     collective_bytes_modeled: Optional[int] = None
-    # storage policy the forward ran under (kernels/quantize.py; fp32 is
-    # the only one ported so far).
+    # storage policy the forward ran under (kernels/quantize.py): fp32 |
+    # bf16 | int8w; the modeled bytes above are priced at its widths.
     precision: Optional[str] = None
     # bytes of the weight tree the executor streams
     # (quantize.model_params_bytes).

@@ -1,4 +1,4 @@
-"""K1-K5 and their paths on the CUDA card, against their plain versions
+"""K1-K5, K1r and K2r and their paths on the CUDA card, against their plain versions
 on the same card (and a train step and LM decoding against the CPU). Marked
 ``gpu``: without a card every test skips (the fixture decides, at run
 time). Run on a machine with an H100:
@@ -9,6 +9,7 @@ This file imports torch only, so it runs where jax is not installed."""
 
 import dataclasses
 import itertools
+import math
 
 import numpy as np
 import pytest
@@ -109,11 +110,11 @@ def test_kernel_layout_is_the_wrappers(cuda):
 
 
 def test_ptxas_reports_no_spills(cuda):
-    """K1's and K2's every instantiated width fits its registers."""
+    """K1's, K2's and K2r's every instantiated width fits its registers."""
     from repro_torch.kernels import _build
 
-    _build.build_all(["dilated_conv3d", "megakernel"])
-    for name in ("dilated_conv3d", "megakernel"):
+    _build.build_all(["dilated_conv3d", "megakernel", "megakernel_lp"])
+    for name in ("dilated_conv3d", "megakernel", "megakernel_lp"):
         report = [line for line in _build.build_log(name).splitlines() if "spill" in line]
         assert len(report) >= 4 and all("0 bytes spill stores, 0 bytes spill loads" in line for line in report), report
 
@@ -616,8 +617,18 @@ def test_subvolume_and_reduced_requests_launch_what_they_imply(cuda):
         res = engine.submit(vol, precision=precision)
         assert res.record.status == "ok" and res.record.precision == precision
         assert (conv_kernel.launches - before[0], conv_kernel.reduced_launches - before[1]) == (0, 18)
-    with pytest.raises(ValueError, match="Queue 2"):
-        engine.submit(vol, precision="bf16", executor="cuda_megakernel")
+    # K2r at bf16 and int8w: the mask plan's segments + the main plan's a
+    # request at the policy, K2 and K1r never
+    from repro_torch.kernels import quantize
+
+    for precision in ("bf16", "int8w"):
+        segs = sum(len(mk.plan_for_config(c, (48, 48, 48), precision=precision).segments) for c in (cfg, mcfg))
+        before = (mk.launches, mk.reduced_launches, conv_kernel.reduced_launches)
+        res = engine.submit(vol, precision=precision, executor="cuda_megakernel")
+        assert (res.record.status, res.record.executor, res.record.precision) == ("ok", "cuda_megakernel", precision)
+        after = (mk.launches, mk.reduced_launches, conv_kernel.reduced_launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (0, segs, 0)
+        assert quantize.resolve_precision("auto") == "fp32"
     # streaming at 48^3 needs 5.75 MB, a 32^3 cube 1.70 MB (no mask model:
     # its full-volume forward would not fit either)
     tight = SegmentationEngine(params, pc, budget=MemoryBudget(2_000_000), device=cuda)
@@ -627,3 +638,170 @@ def test_subvolume_and_reduced_requests_launch_what_they_imply(cuda):
     assert res.record.status == "ok" and res.record.mode == "subvolume"
     assert conv_kernel.launches - before == 9 * ncubes
     assert res.segmentation.shape == (48, 48, 48)
+
+
+# ----------------------------------------------------------------- K2r ---
+
+
+def _lp_gap(got, expect):
+    """(ok, what) of K2r against its plain version: int8 codes within +-1
+    and equal at >= 99.9 % of voxels; bf16 within one bf16 step (the
+    spacing of bf16 values) at the array's largest magnitude. Both round
+    fp32 sums taken in their own orders, so a sum near a rounding boundary
+    may land on either side."""
+    diff = (got.float() - expect.float()).abs()
+    equal = float((diff == 0).float().mean())
+    top = float(expect.float().abs().max())
+    what = f"max diff {float(diff.max())}, equal {equal}, largest {top}, elements {diff.numel()}"
+    if got.dtype == torch.int8:
+        return float(diff.max()) <= 1 and equal >= 0.999, what
+    return float(diff.max()) <= 2.0 ** (math.floor(math.log2(top)) - 7), what
+
+
+def _poisoned(t, region):
+    """A copy of staging array t whose border is poison no code writes:
+    -128 for int8 (the codes stop at -127), NaN for bf16."""
+    out = torch.full_like(t, -128) if t.dtype == torch.int8 else torch.full_like(t, float("nan"))
+    out[region] = t[region]
+    return out
+
+
+def _reduced_segments(params, cfg, x, pln, precision, scales):
+    """Yield (i, staging, operands) for every segment of a reduced plan, the
+    first staging the policy's input, each later one K2r's output of the
+    segment before; every border poisoned."""
+    from repro_torch.kernels import quantize
+
+    first = pln.segments[0]
+    h = first.halo
+    x = quantize.quantize_input(x) if precision == "int8w" else x.to(torch.bfloat16)
+    act = torch.zeros((x.shape[0],) + tuple(p + 2 * h for p in pln.padded(first)) + (x.shape[-1],), dtype=x.dtype,
+                      device=x.device)
+    act = _poisoned(act, (slice(None),) + tuple(slice(h, h + v) for v in pln.vol) + (slice(None),))
+    act[:, h : h + pln.vol[0], h : h + pln.vol[1], h : h + pln.vol[2]] = x
+    for i, seg in enumerate(pln.segments):
+        layers, head = ops.megakernel_operands(params, cfg, seg, precision)
+        deq, qs = mk.scale_operands(pln, i)
+        operands = (layers, head, scales[seg.start - 1] if deq else None,
+                    scales[seg.start + len(seg.dilations) - 1] if qs else None)
+        yield i, act, operands
+        act = _poisoned(mk.run_segment(act, pln, i, *operands), _written(pln, i))
+
+
+@pytest.mark.parametrize("policy", ["bf16", "int8w", "int8w_no_staging"])
+@pytest.mark.parametrize(
+    "channels,classes,dilations,shape,budget,cin",
+    [
+        (5, 3, (1, 2, 4, 8, 16, 8, 4, 2, 1), (1, 40, 36, 44), mk.SMEM_BUDGET, 1),
+        (5, 2, (1, 1, 2, 1), (2, 30, 26, 29), mk.SMEM_BUDGET, 1),
+        (10, 2, (1, 2, 4, 8), (1, 33, 20, 27), 60_000, 1),
+        (10, 50, (2, 1, 1), (2, 19, 24, 21), mk.SMEM_BUDGET, 1),
+        (18, 104, (1, 2, 1), (1, 20, 20, 20), 100_000, 1),
+        (21, 3, (1, 2, 4, 2, 1), (2, 19, 24, 21), 120_000, 1),
+        # the odd shape, batch 2, plans forced to multi-layer segments
+        (5, 3, (1, 2, 4, 8, 16, 8, 4, 2, 1), (2, 10, 12, 14), 40_000, 1),
+        (5, 3, (1, 2, 4, 8, 16, 8, 4, 2, 1), (2, 10, 12, 14), 20_000, 1),
+        (10, 3, (1, 2, 4, 2, 1), (2, 10, 12, 14), 60_000, 1),
+        # rows longer than a warp's chunk, a dilation past the extent, a
+        # 64-channel input
+        (5, 2, (1, 2, 1), (1, 6, 5, 300), mk.SMEM_BUDGET, 1),
+        (21, 3, (16, 1), (1, 9, 10, 11), mk.SMEM_BUDGET, 1),
+        (21, 3, (1, 2), (2, 10, 12, 14), 200_000, 64),
+    ],
+)
+def test_reduced_megakernel_segments_match_plain_version(cuda, channels, classes, dilations, shape, budget, cin, policy):
+    """K2r segment by segment against its plain version on the same staging
+    arrays, their borders poisoned: bf16, int8w with int8 staging, int8w
+    without (bf16 staging); the planner's plans and plans forced to
+    multi-layer segments by small budgets."""
+    from repro_torch.kernels import quantize
+
+    precision = policy[:5] if policy != "bf16" else "bf16"
+    staging = policy == "int8w"
+    cfg = meshnet.MeshNetConfig(in_channels=cin, channels=channels, num_classes=classes, dilations=dilations)
+    params = quantize.prepare_params(_params_with_bn(cfg, channels + classes, cuda), cfg, precision)
+    scales = quantize.staging_scales_from_bn(params, cfg) if staging else None
+    pln = mk.plan_for_config(cfg, shape[1:], smem_budget=budget, precision=precision, int8_staging=staging,
+                             batch=shape[0])
+    x = torch.rand(shape + (cin,), generator=torch.Generator().manual_seed(1)).to(cuda)
+    for i, act, operands in _reduced_segments(params, cfg, x, pln, precision, scales):
+        before = (mk.launches, mk.reduced_launches)
+        out = mk.run_segment(act, pln, i, *operands)
+        torch.cuda.synchronize()
+        assert (mk.launches - before[0], mk.reduced_launches - before[1]) == (0, 1)
+        assert out.dtype == pln.dtypes(i)[1]
+        w = _written(pln, i)
+        got, expect = out[w], ref.megakernel_segment(act, pln, i, *operands)[w]
+        if got.dtype == torch.bfloat16:
+            assert torch.isfinite(got.float()).all()
+        ok, what = _lp_gap(got, expect)
+        assert ok, (i, pln.segments[i], what)
+
+
+@pytest.mark.parametrize("channels", [5, 10, 18, 21])
+def test_reduced_planner_occupancy_is_the_runtimes(cuda, channels):
+    """The planner's blocks an SM for K2r (its layout and REGISTERS_LP)
+    equal the occupancy calculator's for the built K2r, bf16 and int8
+    inputs."""
+    cfg = meshnet.MeshNetConfig(channels=channels, num_classes=3)
+    for precision in ("bf16", "int8w"):
+        widths = mk.plan_widths(precision, True)
+        segs = list(mk.plan_for_config(cfg, (256, 256, 256), precision=precision).segments)
+        segs += [mk.Segment(s, (2,), 1 if s == 0 else channels, channels, t) for s in (0, 1)
+                 for t in ((2, 2, 2), (8, 8, 64), (4, 4, 256))]
+        for seg in segs:
+            smem = mk._segment_smem_bytes(seg, widths)
+            if smem <= mk.SMEM_BUDGET:
+                assert mk.blocks_per_sm(seg, widths) == mk._blocks_per_sm(smem, channels, widths), (precision, seg)
+
+
+def test_reduced_megakernel_forward_launches_once_a_segment(cuda, monkeypatch):
+    """cuda_megakernel at bf16 and int8w: K2r once a segment, K2 and K1r
+    never; the logits within 9b's bf16 gate and the reference's staged
+    int8w gate of the same plan's plain version (relative to the largest
+    logit)."""
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = _params_with_bn(cfg, 5, cuda)
+    x = torch.rand((1, 40, 48, 36), generator=torch.Generator().manual_seed(2)).to(cuda)
+    # int8w: a staging code one step off (bound / 127, some 0.05 here) moves
+    # the logits downstream of it by more than 9b's 2e-2; the reference's
+    # gate for staged forwards, 8e-2 (tests/test_precision.py:114-135)
+    for precision, gate in (("bf16", 1e-2), ("int8w", 8e-2)):
+        pln = mk.plan_for_config(cfg, (40, 48, 36), precision=precision)
+        before = (mk.launches, mk.reduced_launches, conv_kernel.reduced_launches)
+        got = executors.apply("cuda_megakernel", params, x, cfg, precision=precision)
+        torch.cuda.synchronize()
+        after = (mk.launches, mk.reduced_launches, conv_kernel.reduced_launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (0, len(pln.segments), 0)
+        assert got.dtype == torch.bfloat16 and got.shape == (1, 40, 48, 36, 3)
+        with monkeypatch.context() as m:
+            m.setattr(mk, "run_segment", lambda *a: ref.megakernel_segment(*a))
+            plain = executors.apply("cuda_megakernel", params, x, cfg, precision=precision)
+        assert mk.reduced_launches == after[1]
+        top = float(plain.float().abs().max())
+        assert torch.isfinite(got.float()).all()
+        assert float((got.float() - plain.float()).abs().max()) <= gate * top
+
+
+def test_reduced_megakernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import quantize
+
+    def setup(channels, precision="bf16"):
+        cfg = meshnet.MeshNetConfig(channels=channels, dilations=(1, 2))
+        params = quantize.prepare_params(_params_with_bn(cfg, 0, cuda), cfg, precision)
+        pln = mk.plan_for_config(cfg, (8, 8, 8), precision=precision)
+        h = pln.segments[0].halo
+        x = torch.zeros((1,) + tuple(p + 2 * h for p in pln.padded(pln.segments[0])) + (1,), dtype=pln.dtypes(0)[0],
+                        device=cuda)
+        return x, pln, ops.megakernel_operands(params, cfg, pln.segments[0], precision)
+
+    x, pln, (layers, head) = setup(5)
+    with pytest.raises(TypeError):
+        mk.run_segment(x.float(), pln, 0, layers, head)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.run_segment(x.transpose(1, 2), pln, 0, layers, head)
+    with pytest.raises(ValueError, match="operands on"):
+        mk.run_segment(x, pln, 0, [tuple(t.cpu() for t in layers[0])], head)
+    x3, pln3, (layers3, head3) = setup(3)
+    with pytest.raises(ValueError, match="Cout=3"):
+        mk.run_segment(x3, pln3, 0, layers3, head3)

@@ -268,11 +268,21 @@ class TestPlanner:
             128, 16, 8, 14]
 
     def test_plan_is_memoised_and_fp32_only(self):
+        # memoised per policy (and, under int8w, per staging width): a plan
+        # made for fp32 is never handed to bf16 (tests/test_precision.py::
+        # test_precision_plans_cached_separately)
         cfg = meshnet.PAPER_MODELS["gwm_light"]
-        assert mk.plan_for_config(cfg, PAPER_VOL) is mk.plan_for_config(cfg, PAPER_VOL)
-        for precision in ("bf16", "int8w"):
-            with pytest.raises(mk.PrecisionNotPorted, match="Queue 2's K2 item"):
-                mk.plan_for_config(cfg, PAPER_VOL, precision=precision)
+        plans = {}
+        for precision, staging in (("fp32", None), ("bf16", None), ("int8w", True), ("int8w", False)):
+            pln = mk.plan_for_config(cfg, PAPER_VOL, precision=precision, int8_staging=staging)
+            assert pln is mk.plan_for_config(cfg, PAPER_VOL, precision=precision, int8_staging=staging)
+            assert pln.widths == mk.plan_widths(precision, staging)
+            plans[(precision, staging)] = pln
+        assert len({id(p) for p in plans.values()}) == 4
+        assert plans[("fp32", None)] is mk.plan_for_config(cfg, PAPER_VOL)
+        # with BatchNorm, int8w stages int8 unless told otherwise
+        assert plans[("int8w", True)] is mk.plan_for_config(cfg, PAPER_VOL, precision="int8w")
+        assert [p.widths for p in plans.values()] == [(4, 4, 4, 4), (2, 2, 2, 2), (2, 1, 1, 1), (2, 1, 1, 2)]
 
 
 class TestParity:
@@ -433,7 +443,7 @@ class TestPipeline:
         params = bridge.params_from_numpy(_np_params(cfg, seed=30), "cpu")
         vol = np.random.default_rng(31).random((16, 16, 16)).astype(np.float32)
         expected = {
-            "torch": None,
+            "torch": traffic.meshnet_plain_bytes(cfg, (16, 16, 16)),
             "cuda_fused": traffic.meshnet_fused_bytes(cfg, (16, 16, 16)),
             "cuda_megakernel": traffic.meshnet_megakernel_bytes(cfg, (16, 16, 16)),
         }

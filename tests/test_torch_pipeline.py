@@ -239,16 +239,23 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "change,match",
     [
-        # sub-volume mode and bf16 serve now (tests/test_torch_precision.py);
-        # what still waits is K2 at the reduced policies, in either mode
-        (dict(mode="subvolume", executor="cuda_megakernel", precision="bf16"), "Queue 2's K2 item"),
+        # K2 at the reduced policies serves now, in either mode (K2r's
+        # plain version here): the request is served and stamped with the
+        # executor and policy that ran. What still waits is sharding.
+        (dict(mode="subvolume", cube=8, overlap=4, executor="cuda_megakernel", precision="bf16"), None),
         (dict(shard_devices=2), "multi-GPU slice"),
-        (dict(executor="cuda_megakernel", precision="bf16"), "Queue 2's K2 item"),
+        (dict(executor="cuda_megakernel", precision="bf16"), None),
     ],
     ids=["subvolume_k2_bf16", "shard_devices", "k2_bf16"],
 )
 def test_later_slices_raise(change, match):
     _, port = _both(MAIN, seed=70)
     pc = dataclasses.replace(pipeline.PipelineConfig(model=port["cfg"], volume_shape=(16, 16, 16)), **change)
+    if match is None:
+        res = pipeline.run(pc, port["params"], _volume((16, 16, 16), seed=71), device="cpu")
+        assert res.record.status == "ok", res.record.fail_type
+        assert (res.record.executor, res.record.precision, res.record.mode) == ("cuda_megakernel", "bf16", pc.mode)
+        assert res.segmentation.shape == (16, 16, 16)
+        return
     with pytest.raises(ValueError, match=match):
         pipeline.run(pc, port["params"], _volume((16, 16, 16), seed=71), device="cpu")

@@ -188,7 +188,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch import synchronize, tree  # noqa: E402
-from repro_torch.core import conform, executors, meshnet  # noqa: E402
+from repro_torch.core import conform, executors, meshnet, pipeline, spatial_shard  # noqa: E402
 from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
 from repro_torch.data import mri  # noqa: E402
 from repro_torch.kernels import _build, ops, quantize, ref  # noqa: E402
@@ -311,15 +311,16 @@ def k1_work(shape, cin, cout, dilation) -> tuple[int, int]:
     return ops_, bytes_
 
 
-def k2_work(pln, i: int) -> tuple[int, int]:
+def k2_work(pln, i: int, vol=None) -> tuple[int, int]:
     """(operations, bytes) segment i of ``pln`` must do and move, counted
     as K1's are: each layer's in-volume taps and epilogue over the true
-    volume, the fused head's products and bias; the segment's input read
-    once, its parameters once, its output written once. The plan's halo
-    recompute and haloed window reads are not part of the function: they
-    price the schedule (``plan_bound_ms``)."""
+    volume (``vol``, default the plan's), the fused head's products and
+    bias; the segment's input read once, its parameters once, its output
+    written once. The plan's halo recompute and haloed window reads are not
+    part of the function: they price the schedule (``plan_bound_ms``)."""
     seg = pln.segments[i]
-    shape, voxels = (1,) + tuple(pln.vol), math.prod(pln.vol)
+    vol = tuple(vol or pln.vol)
+    shape, voxels = (1,) + vol, math.prod(vol)
     ops_, cin = 0, seg.cin
     for d in seg.dilations:
         ops_ += k1_work(shape, cin, seg.channels, d)[0]
@@ -1397,8 +1398,8 @@ def lp_gap(got: torch.Tensor, expect: torch.Tensor) -> tuple[bool, str, float]:
 
 def poisoned(t: torch.Tensor, region: tuple) -> torch.Tensor:
     """A copy of staging array ``t`` whose border (all but ``region``) is
-    poison no code writes: NaN for bf16, -128 for int8 (codes stop at
-    -127)."""
+    poison no code writes: NaN for fp32 and bf16, -128 for int8 (codes
+    stop at -127)."""
     out = torch.full_like(t, -128) if t.dtype == torch.int8 else torch.full_like(t, float("nan"))
     out[region] = t[region]
     return out
@@ -1440,10 +1441,11 @@ def plain_segments():
         k2.run_segment = saved
 
 
-def forced_k2r_plan(cfg, size: int, widths) -> "k2.MegakernelPlan":
+def forced_k2r_plan(cfg, vol: tuple, widths) -> "k2.MegakernelPlan":
     """gwm_light's schedule cut into multi-layer segments (which the
     time-priced planner does not choose: it prices the halo recompute),
-    each at the largest of a few tiles whose K2r layout fits one block."""
+    each at the largest of a few tiles whose layout at ``widths`` (K2r's,
+    or K2's at fp32) fits one block."""
     tiles = ((8, 8, 64), (4, 4, 64), (4, 4, 32), (2, 2, 32), (2, 2, 8))
     cuts = ((0, 2), (2, 3), (3, 4), (4, 5), (5, 7), (7, 9))
     n = len(cfg.dilations)
@@ -1451,13 +1453,13 @@ def forced_k2r_plan(cfg, size: int, widths) -> "k2.MegakernelPlan":
     for i, j in cuts:
         for t in tiles:
             seg = k2.Segment(i, cfg.dilations[i:j], cfg.in_channels if i == 0 else cfg.channels, cfg.channels,
-                             tuple(min(a, size) for a in t), j == n, cfg.num_classes)
+                             tuple(min(a, v) for a, v in zip(t, vol)), j == n, cfg.num_classes)
             if k2._segment_smem_bytes(seg, widths) <= k2.SMEM_BUDGET:
                 segments.append(seg)
                 break
         else:
             raise RuntimeError(f"no tile fits layers {i}..{j}")
-    return k2.MegakernelPlan(tuple(segments), (size,) * 3, widths)
+    return k2.MegakernelPlan(tuple(segments), tuple(vol), widths)
 
 
 def phase_reduced_megakernel(dev, size: int) -> float:
@@ -1477,7 +1479,7 @@ def phase_reduced_megakernel(dev, size: int) -> float:
             pln = k2.plan_for_config(cfg, (size,) * 3, precision=precision)
             plans = [("planner's", pln)]
             if name == "gwm_light":
-                plans.append(("forced", forced_k2r_plan(cfg, size, pln.widths)))
+                plans.append(("forced", forced_k2r_plan(cfg, (size,) * 3, pln.widths)))
             for which, p in plans:
                 for i, act, operands in k2r_stagings(p, prepared, cfg, x[..., None], precision, scales):
                     seg = p.segments[i]
@@ -1518,16 +1520,16 @@ def phase_reduced_megakernel(dev, size: int) -> float:
     return worst
 
 
-def k2r_work(pln, i: int) -> tuple[int, int]:
+def k2r_work(pln, i: int, vol=None) -> tuple[int, int]:
     """(operations, bytes) of K2r's segment i, counted as K2's (``k2_work``)
     with each role at the plan's widths: the input staging at its width,
     the conv weights at theirs, the head's bf16, bias, scale, offset and the
     scales fp32, the output at its width."""
     seg = pln.segments[i]
-    ops_, _ = k2_work(pln, i)
+    ops_, _ = k2_work(pln, i, vol)
     act, wt, _, _ = pln.widths
     ib, ob = (torch.tensor([], dtype=t).element_size() for t in pln.dtypes(i))
-    voxels, c, k = math.prod(pln.vol), seg.channels, len(seg.dilations)
+    voxels, c, k = math.prod(vol or pln.vol), seg.channels, len(seg.dilations)
     weights = (27 * seg.cin * c + 27 * c * c * (k - 1)) * wt
     vectors = 3 * c * k + seg.cin + c
     if seg.fuse_head:
@@ -1536,13 +1538,26 @@ def k2r_work(pln, i: int) -> tuple[int, int]:
     return ops_, voxels * seg.cin * ib + weights + 4 * vectors + voxels * seg.cout * ob
 
 
+def k2z_work(work, pln, i: int, z_bounds) -> tuple[int, int]:
+    """(operations, bytes) of K2z's (K2r-z's) segment i on a window with
+    valid rows ``z_bounds``: ``work`` (``k2_work`` or ``k2r_work``) over
+    the rows inside ``ref.z_interval`` only. Rows outside hold zeros that
+    no output of the sharded forward reads, so their outputs and the taps
+    into them are not part of the function."""
+    lo, hi = ref.z_interval(pln.vol[0], z_bounds)
+    return work(pln, i, (hi - lo,) + tuple(pln.vol[1:]))
+
+
 def count_launches(dev, fn):
-    """(result, {K1, K1r, K2, K2r} launches) of ``fn()``: every count set to
-    0 just before and read just after (a main path)."""
+    """(result, {K1, K1r, K2, K2r, K2z} launches) of ``fn()``: every count
+    set to 0 just before and read just after (a main path). K2z counts
+    K2's and K2r's launches with z_bounds."""
     synchronize(dev)
-    k1.launches = k1.reduced_launches = k2.launches = k2.reduced_launches = 0
+    k1.launches = k1.reduced_launches = k2.launches = k2.reduced_launches = k2.z_launches = 0
     res = fn()
-    return res, {"K1": k1.launches, "K1r": k1.reduced_launches, "K2": k2.launches, "K2r": k2.reduced_launches}
+    synchronize(dev)
+    return res, {"K1": k1.launches, "K1r": k1.reduced_launches, "K2": k2.launches, "K2r": k2.reduced_launches,
+                 "K2z": k2.z_launches}
 
 
 def stages(rec) -> str:
@@ -1578,13 +1593,14 @@ def phase_subvolume(dev, size: int, rehearsal: bool) -> dict:
               f"modeled bytes {rec.hbm_bytes_modeled}; stages {stages(rec)}")
         check(rec.status == "ok" and rec.mode == "subvolume", f"subvolume request under {name}: {rec.status} {rec.fail_type}")
         if name == "cuda_fused":
-            expect = {"K1": 9 * (1 + ncubes), "K1r": 0, "K2": 0, "K2r": 0}
+            expect = {"K1": 9 * (1 + ncubes), "K1r": 0, "K2": 0, "K2r": 0, "K2z": 0}
         elif name == "cuda_megakernel":
             read = (cube + 2 * overlap,) * 3
             segs = len(k2.plan_for_config(cfg, read).segments)
-            expect = {"K1": 0, "K1r": 0, "K2": len(k2.plan_for_config(mcfg, shape).segments) + ncubes * segs, "K2r": 0}
+            expect = {"K1": 0, "K1r": 0, "K2": len(k2.plan_for_config(mcfg, shape).segments) + ncubes * segs, "K2r": 0,
+                      "K2z": 0}
         else:
-            expect = {"K1": 0, "K1r": 0, "K2": 0, "K2r": 0}
+            expect = {"K1": 0, "K1r": 0, "K2": 0, "K2r": 0, "K2z": 0}
         check(counts == expect, f"subvolume {name} launches {counts}, expected {expect}")
         differ = res.segmentation != plain.segmentation
         agree = 1.0 - float(differ.float().mean())
@@ -1610,7 +1626,7 @@ def phase_subvolume(dev, size: int, rehearsal: bool) -> dict:
               f"launches {counts}; params bytes {rec.params_bytes}; modeled bytes {rec.hbm_bytes_modeled}; "
               f"stages {stages(rec)}")
         check(rec.status == "ok" and rec.precision == precision, f"{precision} request: {rec.status} {rec.fail_type}")
-        expect = {"K1": 0, "K1r": 2 * len(cfg.dilations) if cuda else 0, "K2": 0, "K2r": 0}
+        expect = {"K1": 0, "K1r": 2 * len(cfg.dilations) if cuda else 0, "K2": 0, "K2r": 0, "K2z": 0}
         check(counts == expect, f"{precision} request launches {counts}, expected {expect}")
         agree = 1.0 - float((res.segmentation != full.segmentation).float().mean())
         print(f"{precision} request vs the fp32 request: {agree:.6%} of voxels agree")
@@ -1629,7 +1645,7 @@ def phase_subvolume(dev, size: int, rehearsal: bool) -> dict:
               f"{precision} cuda_megakernel request: {rec.status} {rec.fail_type} {rec.executor}")
         segs = (len(k2.plan_for_config(mcfg, shape, precision=precision).segments)
                 + len(k2.plan_for_config(cfg, rec.crop_size, precision=precision).segments))
-        expect = {"K1": 0, "K1r": 0, "K2": 0, "K2r": segs if cuda else 0}
+        expect = {"K1": 0, "K1r": 0, "K2": 0, "K2r": segs if cuda else 0, "K2z": 0}
         check(counts == expect, f"{precision} cuda_megakernel request launches {counts}, expected {expect} "
                                 f"(segments x forwards)")
         plain = engine.submit(vol, precision=precision, executor="torch")
@@ -1655,7 +1671,7 @@ def phase_subvolume(dev, size: int, rehearsal: bool) -> dict:
           f"pick_mode {mode}; status {rec.status} mode {rec.mode} launches {counts}; stages {stages(rec)}")
     check(mode == "subvolume" and rec.status == "ok" and rec.mode == "subvolume", f"F1 probe: {mode} {rec.status} {rec.fail_type}")
     ncubes = math.prod(-(-s // cube) for s in shape)
-    check(counts == {"K1": 9 * ncubes if cuda else 0, "K1r": 0, "K2": 0, "K2r": 0}, f"F1 probe launches {counts}")
+    check(counts == {"K1": 9 * ncubes if cuda else 0, "K1r": 0, "K2": 0, "K2r": 0, "K2z": 0}, f"F1 probe launches {counts}")
     return out
 
 
@@ -1745,8 +1761,219 @@ def phase_reduced_times(dev, card: str, size: int) -> tuple[list[dict], list[dic
     return rows, k2r_rows
 
 
+# ------------------------------------------- phase 10: the sharded executors ---
+
+SLABS = 4  # phase 10's Z-slab count
+SHARD_REDUCED_GATE = 2e-2  # sharded against single-device at bf16 and int8w (tests/test_precision.py:266)
+
+
+def slab_devices(dev, n: int) -> list:
+    """n slab devices: cuda:0 .. n-1 where the host has them, else the one
+    card (or the CPU in a rehearsal) n times."""
+    if dev.type == "cuda" and torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev] * n
+
+
+def slab_windows(x: torch.Tensor, cfg, n: int, precision: str) -> list:
+    """The megakernel inner's windows of ``x`` (B, D, H, W): its n slabs at
+    the policy's input type (int8 codes under int8w, bf16 under bf16), each
+    with the receptive-field radius of its neighbours' rows a side, as
+    spatial_shard's one-shot exchange makes them; then (window, z_bounds)."""
+    x = x[..., None]
+    if precision == "int8w":
+        x = quantize.quantize_input(x)
+    elif precision == "bf16":
+        x = x.to(torch.bfloat16)
+    dloc, radius = x.shape[1] // n, sum(cfg.dilations)
+    windows = spatial_shard.halo_exchange_z(list(x.split(dloc, 1)), radius)
+    return [(w, spatial_shard.window_z_bounds(i, dloc, n, radius)) for i, w in enumerate(windows)]
+
+
+def junk_outside(t: torch.Tensor, vol, lo: int, hi: int, h: int) -> torch.Tensor:
+    """A copy of staging array ``t`` (the volume ``vol`` at offset h) with
+    its border poisoned and the volume's rows outside [lo, hi) junk: NaN
+    (fp32, bf16) or the code 100 (int8), rows no bounded kernel may read."""
+    region = (slice(None),) + tuple(slice(h, h + v) for v in vol) + (slice(None),)
+    out = poisoned(t, region)
+    junk = 100 if t.dtype == torch.int8 else float("nan")
+    out[:, h : h + lo, h : h + vol[1], h : h + vol[2]] = junk
+    out[:, h + hi : h + vol[0], h : h + vol[1], h : h + vol[2]] = junk
+    return out
+
+
+def k2z_stagings(pln, params, cfg, window: torch.Tensor, bounds, precision: str, scales):
+    """Yield (i, input staging, operands) for every segment of a window's
+    plan: the first staging the window, each later one K2z's (K2r-z's)
+    output of the segment before; every border poisoned and every row
+    outside the bounds junk. ``params`` prepared for ``precision``."""
+    first = pln.segments[0]
+    h = first.halo
+    lo, hi = ref.z_interval(pln.vol[0], bounds)
+    act = torch.zeros((window.shape[0],) + tuple(p + 2 * h for p in pln.padded(first)) + (window.shape[-1],),
+                      dtype=window.dtype, device=window.device)
+    act[:, h : h + pln.vol[0], h : h + pln.vol[1], h : h + pln.vol[2]] = window
+    for i, seg in enumerate(pln.segments):
+        layers, head = ops.megakernel_operands(params, cfg, seg, precision)
+        deq, qs = k2.scale_operands(pln, i) if precision != "fp32" else (False, False)
+        operands = (layers, head, scales[seg.start - 1] if deq else None,
+                    scales[seg.start + len(seg.dilations) - 1] if qs else None)
+        act = junk_outside(act, pln.vol, lo, hi, seg.halo)
+        yield i, act, operands
+        if i + 1 < len(pln.segments):
+            act = k2.run_segment(act, pln, i, *operands, z_bounds=bounds)
+
+
+def sharded_models(dev, size: int):
+    gen = torch.Generator().manual_seed(SEED + 10)
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
+    vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
+    return cfg, params, vol, conform.conform(vol, (size,) * 3)[None]
+
+
+def phase_sharded_parity(dev, size: int) -> dict:
+    print(f"== phase 10a: K2z and K2r-z against their plain versions on the {SLABS}-slab windows at {size}^3 "
+          "(the first and last slabs: the volume's ends inside the window), segment by segment, rows outside the "
+          "bounds junk")
+    cfg, params, _, x = sharded_models(dev, size)
+    worst = {"fp32": 0.0, "bf16": 0.0}  # the largest fp32 and bf16 differences (int8 codes: within 1)
+    for precision in ("fp32", "bf16", "int8w"):
+        prepared = quantize.prepare_params(params, cfg, precision)
+        scales = quantize.staging_scales_from_bn(prepared, cfg) if precision == "int8w" else None
+        windows = slab_windows(x, cfg, SLABS, precision)
+        for slab, which in ((0, "planner's"), (SLABS - 1, "planner's"), (0, "forced")):
+            window, bounds = windows[slab]
+            vol = tuple(window.shape[1:4])
+            pln = k2.plan_for_config(cfg, vol, precision=precision)
+            if which == "forced":  # multi-layer segments: the per-layer mask inside a segment acts
+                pln = forced_k2r_plan(cfg, vol, pln.widths)
+            for i, act, operands in k2z_stagings(pln, prepared, cfg, window, bounds, precision, scales):
+                seg = pln.segments[i]
+                out = k2.run_segment(act, pln, i, *operands, z_bounds=bounds)
+                synchronize(dev)
+                got = out[written(pln, i)]
+                expect = ref.megakernel_segment(act, pln, i, *operands, z_bounds=bounds)[written(pln, i)]
+                check(bool(torch.isfinite(got.float()).all()), f"K2z {precision} slab {slab} segment {i} finite")
+                if precision == "fp32":
+                    diff, rel = rel_err(got, expect)
+                    ok, what = rel <= KERNEL_REL_TOL, f"max_abs_err {diff:.3e} rel {rel:.3e}"
+                else:
+                    ok, what, diff = lp_gap(got, expect)
+                print(f"K2z {precision} slab {slab} window {vol} bounds {bounds} {which} plan segment "
+                      f"{i}/{len(pln.segments)} dilations {seg.dilations} tile {seg.tile}: {what}")
+                check(ok, f"K2z {precision} slab {slab} segment {i}: {what}")
+                if got.dtype != torch.int8:
+                    key = "fp32" if got.dtype == torch.float32 else "bf16"
+                    worst[key] = max(worst[key], diff)
+                del out, got, expect
+    return worst
+
+
+def phase_sharded(dev, size: int, rehearsal: bool) -> dict:
+    devices = slab_devices(dev, SLABS)
+    print(f"== phase 10b: the sharded executors at {size}^3, gwm_light full width, {SLABS} slabs on "
+          f"{[str(d) for d in devices]}: main paths, held to the single-device executors")
+    cfg, params, vol, x = sharded_models(dev, size)
+    cuda = dev.type == "cuda"
+    window = (size // SLABS + 2 * sum(cfg.dilations), size, size)
+    out = {"K2z": 0}
+    for precision in ("fp32", "bf16", "int8w"):
+        single = executors.apply("cuda_megakernel", params, x, cfg, precision=precision).float()
+        got, counts = count_launches(dev, lambda: spatial_shard.sharded_executor_apply(
+            "cuda_megakernel", params, x, cfg, precision=precision, devices=devices))
+        got = got.float()
+        segs = len(k2.plan_for_config(cfg, window, precision=precision).segments)
+        expect = {"K1": 0, "K1r": 0, "K2": 0, "K2r": 0, "K2z": SLABS * segs if cuda else 0}
+        err, agree = logit_gap(got, single)
+        top = float(single.abs().max())
+        print(f"sharded_cuda_megakernel@{SLABS} {precision}: launches {counts} ({SLABS} windows x {segs} segments of "
+              f"the {window} plan); vs single-device cuda_megakernel max_abs {err:.4e} (largest logit {top:.4f}, "
+              f"argmax agrees {agree:.6%})")
+        check(counts == expect, f"sharded megakernel {precision} launches {counts}, expected {expect}")
+        check(tuple(got.shape) == tuple(single.shape) and bool(torch.isfinite(got).all()),
+              f"sharded megakernel {precision} logits {tuple(got.shape)}")
+        gate = MEGA_FORWARD_REL_TOL if precision == "fp32" else SHARD_REDUCED_GATE
+        check(err <= gate * top, f"sharded megakernel {precision}: {err} > {gate} x {top}")
+        if precision == "fp32":
+            check(agree == 1.0, f"sharded megakernel fp32 segmentation differs from the single-device one: {agree}")
+        out["K2z"] += counts["K2z"]
+        del single, got
+    single = executors.apply("cuda_fused", params, x, cfg)
+    got, counts = count_launches(dev, lambda: spatial_shard.sharded_executor_apply(
+        "cuda_fused", params, x, cfg, devices=devices))
+    err, agree = logit_gap(got, single)
+    top = float(single.abs().max())
+    expect = {"K1": SLABS * len(cfg.dilations) if cuda else 0, "K1r": 0, "K2": 0, "K2r": 0, "K2z": 0}
+    print(f"sharded_cuda_fused@{SLABS} fp32: launches {counts}; vs single-device cuda_fused max_abs {err:.4e} "
+          f"(largest logit {top:.4f}, argmax agrees {agree:.6%})")
+    check(counts == expect, f"sharded fused launches {counts}, expected {expect}")
+    check(err <= MEGA_FORWARD_REL_TOL * top and agree == 1.0, f"sharded fused: {err}, argmax {agree}")
+    del single, got
+    # the pipeline, as a user asks for slabs: served where the host has the
+    # cards, else a typed shard_geometry failure
+    pc = PipelineConfig(model=cfg, volume_shape=(size,) * 3, executor="cuda_megakernel" if cuda else "torch",
+                        shard_devices=SLABS)
+    res, counts = count_launches(dev, lambda: pipeline.run(pc, params, vol, device=dev))
+    rec = res.record
+    print(f"pipeline.run(shard_devices={SLABS}): status {rec.status} fail_type {rec.fail_type} executor {rec.executor} "
+          f"launches {counts}; collective bytes modeled {rec.collective_bytes_modeled}; modeled bytes "
+          f"{rec.hbm_bytes_modeled}; devices on this host {spatial_shard.device_count(dev.type)}")
+    check(rec.executor == executors.sharded_name(executors.inner_of(pc.executor), SLABS), f"executor {rec.executor}")
+    if spatial_shard.device_count(dev.type) >= SLABS:
+        check(rec.status == "ok" and rec.collective_bytes_modeled > 0, f"pipeline: {rec.status} {rec.fail_type}")
+    else:
+        check((rec.status, rec.fail_type) == ("fail", "shard_geometry"), f"pipeline: {rec.status} {rec.fail_type}")
+        check(sum(counts.values()) == 0, f"a refused request launched {counts}")
+    return out
+
+
+def phase_sharded_times(dev, card: str, size: int) -> list[dict]:
+    print(f"== phase 10c: K2z and K2r-z times on the {SLABS} windows, and the sharded forwards beside the "
+          f"single-device ones ({size}^3, card: {card})")
+    _, peak_fp32, peak_bw = peaks_for(card)
+    cfg, params, _, x = sharded_models(dev, size)
+    devices = slab_devices(dev, SLABS)
+    rows = []
+    for precision in ("fp32", "bf16", "int8w"):
+        prepared = quantize.prepare_params(params, cfg, precision)
+        scales = quantize.staging_scales_from_bn(prepared, cfg) if precision == "int8w" else None
+        for slab, (window, bounds) in enumerate(slab_windows(x, cfg, SLABS, precision)):
+            pln = k2.plan_for_config(cfg, tuple(window.shape[1:4]), precision=precision)
+            for i, act, operands in k2z_stagings(pln, prepared, cfg, window, bounds, precision, scales):
+                kernel_ms = time_ms(lambda: k2.run_segment(act, pln, i, *operands, z_bounds=bounds))
+                plain_ms = time_ms(lambda: ref.megakernel_segment(act, pln, i, *operands, z_bounds=bounds),
+                                   runs=2, warmup=1)
+                fp32 = precision == "fp32"
+                ops_, bytes_ = k2z_work(k2_work if fp32 else k2r_work, pln, i, bounds)
+                bound_ms, bound_by = bound(ops_, bytes_, peak_fp32 if fp32 else BF16_TC_PEAK, peak_bw)
+                seg = pln.segments[i]
+                row = dict(precision=precision, slab=slab, bounds=list(bounds), segment=i,
+                           dilations=list(seg.dilations), tile=list(seg.tile), blocks=pln.segment_blocks(i),
+                           kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                           share_of_bound=bound_ms / kernel_ms, modeled_ms=pln.segment_modeled_ms(i), ops=ops_,
+                           bytes=bytes_)
+                print("times K2z " + json.dumps(row))
+                rows.append(row)
+        mine = [r for r in rows if r["precision"] == precision]
+        print(f"times K2z {precision}: {len(mine)} launches a {SLABS}-slab forward, kernels "
+              f"{sum(r['kernel_ms'] for r in mine):.4f} ms, plain {sum(r['plain_ms'] for r in mine):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in mine):.4f} ms")
+    for inner, policies in (("cuda_megakernel", ("fp32", "bf16", "int8w")), ("cuda_fused", ("fp32", "bf16", "int8w"))):
+        for precision in policies:
+            prepared = quantize.prepare_params(params, cfg, precision)
+            one = time_ms(lambda: executors.apply(inner, prepared, x, cfg, precision=precision), runs=10)
+            many = time_ms(lambda: spatial_shard.sharded_executor_apply(
+                inner, prepared, x, cfg, precision=precision, devices=devices), runs=10)
+            print(f"times forward {inner} {precision}: single-device {one:.4f} ms; sharded over {SLABS} slabs on "
+                  f"{len(set(devices))} card(s) {many:.4f} ms ({many / one:.3f}x; one gwm_light forward at {size}^3, "
+                  "slabs in turn, the halo exchange and the crop included)")
+    print_clocks()
+    return rows
+
+
 def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err, k4_err, k4_row, views,
-                 k1r_rows, k1r_err, k2r_rows, k2r_err) -> dict:
+                 k1r_rows, k1r_err, k2r_rows, k2r_err, k2z_rows, k2z_err) -> dict:
     """Per-forward numbers of K1, K2 and K5: one gwm_light forward at 256^3,
     9 launches of K1 or K5 or one launch of K2 per segment of the plan; K3's
     per count of one 256^3 3-class pair; K4's per launch at the served
@@ -1769,6 +1996,7 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
     s8 = [r for r in k2r_rows if r["precision"] == "int8w"]
     tk16, bk16, byk16 = totals(s16)
     tk8, bk8, _ = totals(s8)
+    z = {p: totals([r for r in k2z_rows if r["precision"] == p]) for p in ("fp32", "bf16", "int8w")}
     return {
         "kernels": [
             {
@@ -1909,6 +2137,38 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
                        "max_abs_err the worst bf16 gap to the plain version in phase 9e (int8 codes within 1); "
                        "launches from one bf16 and one int8w request served under cuda_megakernel",
             },
+            {
+                "name": "megakernel_segment_z",
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/megakernel.cu",
+                "sources": ["src/repro_torch/kernels/csrc/megakernel.cu", "src/repro_torch/kernels/csrc/megakernel_lp.cu"],
+                "replaces": "src/repro/kernels/megakernel.py:482",
+                "tpu_kernel": "src/repro/kernels/megakernel.py::_segment_kernel(has_z_bounds=True) (:488, :531, "
+                              ":570-583): K2 and K2r with a valid Z interval narrower than the volume",
+                "launches": launches["sharded"]["K2z"],
+                "max_abs_err": k2z_err["fp32"],
+                "max_abs_err_bf16": k2z_err["bf16"],
+                "ms": z["fp32"][0]["kernel_ms"],
+                "plain_ms": z["fp32"][0]["plain_ms"],
+                "bound_ms": z["fp32"][1],
+                "bound_by": z["fp32"][2],
+                "library_ms": None,
+                "library": "none: no one call runs a segment",
+                "ms_bf16": z["bf16"][0]["kernel_ms"],
+                "plain_ms_bf16": z["bf16"][0]["plain_ms"],
+                "bound_ms_bf16": z["bf16"][1],
+                "ms_int8w": z["int8w"][0]["kernel_ms"],
+                "plain_ms_int8w": z["int8w"][0]["plain_ms"],
+                "bound_ms_int8w": z["int8w"][1],
+                "per": f"one sharded_cuda_megakernel@{SLABS} forward of gwm_light at 256^3 at fp32 (*_bf16, *_int8w: "
+                       f"K2r-z at those policies): {SLABS} windows of {256 // SLABS} + 2 x 46 rows, one launch a "
+                       "segment of each window's plan; sums of per-segment medians; bound: the work of the rows inside "
+                       "each window's z_bounds (k2z_work: their taps, each input read once, each output written "
+                       "once) at the fp32 CUDA-core peak, "
+                       "the reduced policies' at the bf16 tensor-core peak; launches from the fp32, bf16 and int8w "
+                       "sharded forwards of phase 10b; max_abs_err the worst fp32 gap to the plain version in phase "
+                       "10a (int8 codes within 1)",
+            },
         ]
     }
 
@@ -1941,6 +2201,8 @@ def main(argv=None) -> int:
         phase_reduced_forward(dev, size)
         phase_reduced_megakernel(dev, size)
         phase_subvolume(dev, size, rehearsal)
+        phase_sharded_parity(dev, size)
+        phase_sharded(dev, size, rehearsal)
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
     rows, seg_rows = phase_times(dev, card, size)
@@ -1963,8 +2225,12 @@ def main(argv=None) -> int:
     check(launches["subvolume"]["reduced"]["K1r"] > 0, "K1r was not launched on its main path")
     check(launches["subvolume"]["reduced"]["K2r"] > 0, "K2r was not launched on its main path")
     k1r_rows, k2r_rows = phase_reduced_times(dev, card, size)
+    k2z_err = phase_sharded_parity(dev, size)
+    launches["sharded"] = phase_sharded(dev, size, rehearsal)
+    check(launches["sharded"]["K2z"] > 0, "K2z was not launched on its main path")
+    k2z_rows = phase_sharded_times(dev, card, size)
     print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err, k4_err, lm["k4_row"], views,
-                                  k1r_rows, k1r_err, k2r_rows, k2r_err)))
+                                  k1r_rows, k1r_err, k2r_rows, k2r_err, k2z_rows, k2z_err)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0

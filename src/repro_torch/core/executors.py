@@ -42,6 +42,14 @@ until then the megakernel is chosen only by name.
 schedule for ``torch`` and ``streaming``, as the reference's ``xla``; for
 the kernel paths the same forward, since each layer's activation is read
 by one next launch and freed when it is replaced.
+
+The sharded family ``sharded_<inner>[@n]`` (core/spatial_shard.py) wraps
+``torch``, ``cuda_fused`` or ``cuda_megakernel`` and runs it on ``n``
+Z-slabs (all the host's devices of the input's kind without ``@n``); its
+specs are registered on first use (``resolve``, ``ensure_sharded``) and
+price the halo traffic between devices (``collective_bytes``). ``auto``
+never picks it: on a host with several cards that waits for a measurement
+there (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.core import streaming
+from repro_torch.core import spatial_shard, streaming
 from repro_torch.core.meshnet import MeshNetConfig
 from repro_torch.kernels import ops, quantize
 from repro_torch.telemetry import traffic
@@ -59,7 +67,12 @@ from repro_torch.telemetry import traffic
 ApplyFn = Callable[..., torch.Tensor]
 BytesFn = Callable[..., Optional[int]]
 
-#: the port's backend names -> the reference backends they are held to.
+#: name prefix of the Z-sharded wrapper family (core/spatial_shard.py).
+SHARDED_PREFIX = "sharded_"
+
+
+#: the port's backend names -> the reference backends they are held to
+#: (``reference_name`` maps the sharded family too).
 REFERENCE_NAMES = {
     "torch": "xla",
     "cuda_fused": "pallas_fused",
@@ -72,13 +85,16 @@ REFERENCE_NAMES = {
 class ExecutorSpec:
     """One inference backend. ``hbm_bytes(cfg, vol, batch=1,
     precision="fp32")`` prices the schedule's device-memory traffic; None
-    where the schedule has no model."""
+    where the schedule has no model. ``collective_bytes`` (same
+    signature) prices the halo traffic between devices: None for a
+    single-device backend (modeled as zero)."""
 
     name: str
     apply: ApplyFn
     streaming_apply: ApplyFn
     description: str = ""
     hbm_bytes: Optional[BytesFn] = None
+    collective_bytes: Optional[BytesFn] = None
 
 
 _REGISTRY: dict[str, ExecutorSpec] = {}
@@ -96,8 +112,96 @@ def register(spec: ExecutorSpec) -> ExecutorSpec:
 
 
 def names() -> list[str]:
-    """Registered executor names (stable order of registration)."""
-    return list(_REGISTRY)
+    """Registered executor names (stable order of registration), less the
+    sharded family, whose names are open-ended and registered on first
+    use."""
+    return [n for n in _REGISTRY if not n.startswith(SHARDED_PREFIX)]
+
+
+def sharded_name(inner: str, num_devices: Optional[int] = None) -> str:
+    """Registry name of the sharded wrapper around ``inner``:
+    ``sharded_<inner>`` (all the host's devices) or ``sharded_<inner>@<n>``."""
+    base = SHARDED_PREFIX + inner
+    return base if num_devices is None else f"{base}@{num_devices}"
+
+
+def parse_sharded(name: str) -> Optional[tuple[str, Optional[int]]]:
+    """(inner, num_devices) for a sharded-family name, else None. Raises
+    KeyError for a sharded name whose inner is not shardable or whose slab
+    count is not a positive integer."""
+    if not name.startswith(SHARDED_PREFIX):
+        return None
+    inner, _, n = name[len(SHARDED_PREFIX):].partition("@")
+    if inner not in spatial_shard.SHARDED_INNERS:
+        raise KeyError(
+            f"unknown executor {name!r}: sharded inner must be one of {sorted(spatial_shard.SHARDED_INNERS)}"
+        )
+    if n and (not n.isdigit() or int(n) < 1):
+        raise KeyError(f"unknown executor {name!r}: slab count after '@' must be a positive integer")
+    return inner, (int(n) if n else None)
+
+
+def inner_of(name: str) -> str:
+    """The single-device backend behind a sharded name (the name itself
+    otherwise): what a device-count override re-wraps."""
+    parsed = parse_sharded(name)
+    return parsed[0] if parsed else name
+
+
+def reference_name(name: str) -> str:
+    """The reference backend a port executor is held to:
+    ``REFERENCE_NAMES`` for a base name, and ``sharded_<inner>[@n]`` ->
+    ``sharded_<reference inner>[@n]``. KeyError for any other name."""
+    parsed = parse_sharded(name)
+    if parsed is None:
+        return REFERENCE_NAMES[name]
+    inner, n = parsed
+    return sharded_name(REFERENCE_NAMES[inner], n)
+
+
+def shardable(name: str) -> bool:
+    """Whether the (inner of the) named executor has a sharded form."""
+    return inner_of(name) in spatial_shard.SHARDED_INNERS
+
+
+def _make_sharded_spec(inner: str, num_devices: Optional[int]) -> ExecutorSpec:
+    def _apply(params, x, cfg, precision: str = "fp32"):
+        return spatial_shard.sharded_executor_apply(inner, params, x, cfg, num_devices=num_devices, precision=precision)
+
+    def _hbm(cfg, vol, batch: int = 1, precision: str = "fp32"):
+        n = num_devices or spatial_shard.device_count()
+        return traffic.meshnet_sharded_bytes(inner, cfg, vol, n, batch=batch, precision=precision)
+
+    def _collective(cfg, vol, batch: int = 1, precision: str = "fp32"):
+        n = num_devices or spatial_shard.device_count()
+        return traffic.meshnet_collective_bytes(cfg, vol, n, batch=batch, precision=precision)
+
+    slabs = f"{num_devices} Z-slabs" if num_devices else "one Z-slab per device"
+    return ExecutorSpec(
+        name=sharded_name(inner, num_devices),
+        apply=_apply,
+        streaming_apply=_apply,
+        description=f"halo-exchange wrapper over {inner!r} ({slabs})",
+        hbm_bytes=_hbm,
+        collective_bytes=_collective,
+    )
+
+
+def ensure_sharded(inner_or_name: str, num_devices: Optional[int] = None) -> str:
+    """Register (once) and return the sharded wrapper's name. Takes a bare
+    inner (``"cuda_fused"``) or a sharded name (``"sharded_cuda_fused"``,
+    re-pinned to ``num_devices`` when given): how the pipeline's
+    ``shard_devices`` and the engine's per-request device count make their
+    specs."""
+    inner = inner_of(inner_or_name)
+    if inner not in spatial_shard.SHARDED_INNERS:
+        raise KeyError(
+            f"executor {inner!r} cannot be sharded; supported inners: {sorted(spatial_shard.SHARDED_INNERS)}"
+        )
+    name = sharded_name(inner, num_devices)
+    if name not in _REGISTRY:
+        register(_make_sharded_spec(inner, num_devices))
+    return name
 
 
 def default_executor(
@@ -130,10 +234,14 @@ def resolve(
     device=None,
 ) -> str:
     """Map None/"auto" to the device's default (given the model, shape and
-    precision, as the reference's); validate explicit names."""
+    precision, as the reference's); validate explicit names. A sharded
+    name (``sharded_<inner>[@n]``) registers its spec on first use."""
     if name is None or name == AUTO:
         return default_executor(model, volume_shape, device=device, precision=precision)
     if name not in _REGISTRY:
+        parsed = parse_sharded(name)  # KeyError on a bad sharded inner
+        if parsed is not None:
+            return ensure_sharded(*parsed)
         raise KeyError(f"unknown executor {name!r}; registered: {sorted(_REGISTRY)} (or 'auto')")
     return name
 
@@ -208,6 +316,24 @@ def modeled_hbm_bytes(
     if spec.hbm_bytes is None:
         return None
     return spec.hbm_bytes(cfg, volume_shape, batch=batch, precision=precision)
+
+
+def modeled_collective_bytes(
+    name: Optional[str],
+    cfg: MeshNetConfig,
+    volume_shape: tuple[int, int, int],
+    batch: int = 1,
+    precision: str = "fp32",
+    *,
+    device=None,
+) -> int:
+    """Modeled halo bytes between devices of one forward under the named
+    executor: 0 for a single-device backend, the sharded family's
+    ``traffic.meshnet_collective_bytes``."""
+    spec = get(name, device=device)
+    if spec.collective_bytes is None:
+        return 0
+    return spec.collective_bytes(cfg, volume_shape, batch=batch, precision=precision)
 
 
 def _torch_apply(params, x, cfg, precision: str = "fp32"):

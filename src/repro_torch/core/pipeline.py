@@ -2,7 +2,7 @@
 
 conform -> [brain-mask -> crop] -> inference (full | subvolume |
 streaming) -> argmax -> connected-components filtering -> uncrop, on one
-device.
+device, the inference on several under the sharded executors.
 
 Inference dispatches through the executor registry (core/executors.py):
 ``"auto"`` is ``cuda_fused`` (one fused kernel launch per layer) on the
@@ -17,9 +17,15 @@ bytes are stamped on the telemetry record, and each stage is timed into
 it; on the card every stage ends in a synchronisation so the times cover
 the work, not its launch.
 
-Not ported yet: ``shard_devices > 1`` (the multi-GPU slice) raises
-``ValueError``. Otherwise ``run`` never raises on a budget, plan or
-degenerate-volume failure: it returns a failed record.
+``shard_devices=n`` re-wraps the resolved executor as
+``sharded_<inner>@n`` (core/spatial_shard.py: Z-slabs on the first ``n``
+of the host's devices of the run's kind), ``1`` unwraps a sharded name,
+and ``streaming``, which has no sharded form, stays on one device; the
+modeled halo bytes between devices are stamped on
+``collective_bytes_modeled``. ``run`` never raises on a budget, plan,
+slab-geometry or degenerate-volume failure: it returns a failed record
+(``shard_geometry`` where the depth does not divide or the devices are
+lacking).
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device, synchronize
-from repro_torch.core import components, conform as conform_mod, cropping, executors, patching
+from repro_torch.core import components, conform as conform_mod, cropping, executors, patching, spatial_shard
 from repro_torch.core.meshnet import MeshNetConfig
+from repro_torch.core.spatial_shard import ShardGeometryError
 from repro_torch.kernels import quantize
 from repro_torch.telemetry.budget import BudgetExceeded, MemoryBudget
 from repro_torch.telemetry.record import StageTimes, TelemetryRecord
@@ -49,9 +56,10 @@ class PipelineConfig:
     # inference mode: "full" | "subvolume" | "streaming"
     mode: str = "full"
     # forward implementation: "auto" | "torch" | "cuda_fused" |
-    # "cuda_megakernel" | "streaming"
+    # "cuda_megakernel" | "streaming" | "sharded_<inner>[@n]"
     executor: str = executors.AUTO
-    # slab count for multi-GPU sharding; only None or 1 in this slice
+    # Z-slab count of the sharded executors: n > 1 re-wraps the executor
+    # as sharded_<inner>@n, 1 forces one device, None keeps the executor
     shard_devices: Optional[int] = None
     # storage policy (kernels/quantize.py): "fp32" | "bf16" | "int8w" |
     # "auto" (fp32 in the port)
@@ -78,6 +86,31 @@ def _now() -> float:
     return time.perf_counter()
 
 
+def _geometry_fail_type(e: ValueError) -> str:
+    """The record's fail type for a ValueError out of the pre-flight: slab
+    geometry (``ShardGeometryError``: Z does not divide, devices lacking)
+    has its own; any other is an unplannable schedule."""
+    return "shard_geometry" if isinstance(e, ShardGeometryError) else "vmem_oom"
+
+
+def _with_shards(exec_name: str, shard_devices: Optional[int]) -> str:
+    """The executor that runs for ``shard_devices``: a shardable executor
+    re-wrapped pinned to that many slabs (a name that pins its own count,
+    ``sharded_torch@8``, is an explicit request and wins); 1 unwraps a
+    sharded name; an executor with no sharded form (``streaming``) stays
+    on one device."""
+    if shard_devices is None:
+        return exec_name
+    inner = executors.inner_of(exec_name)
+    parsed = executors.parse_sharded(exec_name)
+    pinned = parsed is not None and parsed[1] is not None
+    if shard_devices > 1 and executors.shardable(inner) and not pinned:
+        return executors.ensure_sharded(inner, shard_devices)
+    if shard_devices <= 1:
+        return inner
+    return exec_name
+
+
 def run(
     cfg: PipelineConfig,
     params: Any,
@@ -91,18 +124,15 @@ def run(
     ``device`` (None: the CUDA card, which must exist). ``params`` and the
     mask model's params must already be on that device."""
     dev = resolve_device(device)
-    if cfg.shard_devices is not None and cfg.shard_devices > 1:
-        raise ValueError(
-            "shard_devices > 1 is not ported yet: it comes with the multi-GPU "
-            "slice of the port (ROADMAP Queue 1, item 14)"
-        )
     times = StageTimes()
     # "auto" is resolved against the shape each forward sees: the padded
     # cube in sub-volume mode.
     cube_shape = (cfg.cube + 2 * cfg.overlap,) * 3
     work_shape = cube_shape if cfg.mode == "subvolume" else cfg.volume_shape
     precision = quantize.resolve_precision(cfg.precision, cfg.model)
-    exec_name = executors.resolve(cfg.executor, cfg.model, work_shape, precision, device=dev)
+    exec_name = _with_shards(
+        executors.resolve(cfg.executor, cfg.model, work_shape, precision, device=dev), cfg.shard_devices
+    )
     rec = TelemetryRecord(
         model=cfg.name,
         mode=cfg.mode,
@@ -115,6 +145,11 @@ def run(
         collective_bytes_modeled=0,
     )
     try:
+        # The sharded family's devices must exist: the same error the
+        # forward would raise, before any compute.
+        parsed = executors.parse_sharded(exec_name)
+        if parsed is not None:
+            spatial_shard.mesh_for(parsed[1], dev.type)
         # Price the forward's device-memory traffic before any compute. For
         # the megakernel this plans the schedule, so a plan that fits no
         # block's shared memory fails the run here; the mask forward runs
@@ -126,17 +161,24 @@ def run(
                 exec_name, cfg.model, cube_shape, precision=precision, device=dev
             )
             rec.hbm_bytes_modeled = None if per_cube is None else ncubes * per_cube
+            rec.collective_bytes_modeled = ncubes * executors.modeled_collective_bytes(
+                exec_name, cfg.model, cube_shape, precision=precision, device=dev
+            )
         else:
             rec.hbm_bytes_modeled = executors.modeled_hbm_bytes(
+                exec_name, cfg.model, cfg.volume_shape, precision=precision, device=dev
+            )
+            rec.collective_bytes_modeled = executors.modeled_collective_bytes(
                 exec_name, cfg.model, cfg.volume_shape, precision=precision, device=dev
             )
         if cfg.use_cropping and mask_model is not None:
             executors.modeled_hbm_bytes(
                 exec_name, mask_model[1], cfg.volume_shape, precision=precision, device=dev
             )
-    except ValueError:
+    except ValueError as e:
         rec.status = "fail"
-        rec.fail_type = "vmem_oom"  # the reference's name for an unplannable schedule
+        # "vmem_oom" is the reference's name for an unplannable schedule
+        rec.fail_type = _geometry_fail_type(e)
         return PipelineResult(segmentation=None, record=rec)
     budget = cfg.budget or MemoryBudget.unlimited()
     act_bytes = quantize.act_bytes(precision)
@@ -225,4 +267,10 @@ def run(
         times.preprocessing = _now() - t0
         rec.status = "fail"
         rec.fail_type = "degenerate_volume"
+        return PipelineResult(segmentation=None, record=rec)
+    except ShardGeometryError:
+        # geometry the pre-flight cannot see: the crop picks its shape at
+        # run time, and it need not divide into the slabs
+        rec.status = "fail"
+        rec.fail_type = "shard_geometry"
         return PipelineResult(segmentation=None, record=rec)

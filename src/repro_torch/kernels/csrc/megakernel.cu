@@ -4,6 +4,11 @@
 // BatchNorm (scale, offset) and ReLU; the segment may end in the fused
 // 1x1x1 head. Positions outside the true volume are set to zero after
 // every layer but the last, which reproduces per-layer 'same' padding.
+// K2z is this kernel with a narrower valid Z interval [z_lo, z_hi) in the
+// geometry (the reference's has_z_bounds): the sharded executor's window of
+// a slab and its halo holds the true volume's Z edges inside it, and rows
+// outside the interval are read and written as rows outside the volume. The
+// full interval [0, vol[0]) is plain K2.
 //
 // Replaces the TPU kernel src/repro/kernels/megakernel.py::_segment_kernel.
 // That kernel DMAs the tile's haloed input window into VMEM and keeps every
@@ -58,7 +63,7 @@ using conv_tile::Blocking;
 using conv_tile::Box;
 
 constexpr int kMaxLayers = 16;
-constexpr int kGeomFixed = 23;  // ints before the dilations in the geometry array
+constexpr int kGeomFixed = 25;  // ints before the dilations in the geometry array
 constexpr int kSmemLimit = 232448;
 
 using conv_tile::ceil4;
@@ -69,6 +74,7 @@ struct Geom {
   int in_dims[3], in_halo;
   int out_dims[3], out_halo;
   int n_params, ping, pong, ring;  // shared-memory floats
+  int z_lo, z_hi;  // the valid Z interval, within [0, vol[0]) (K2z: narrower)
   int dil[kMaxLayers];
 };
 
@@ -113,7 +119,7 @@ __device__ __forceinline__ float affine_relu(float a, const float* bias, const f
 // CIN: the first layer's input channels when the compiler may know them
 // (1 or 5, at C = 5), else 0 (read at run time).
 // At least one block an SM: left to its default, ptxas holds K2 to 168
-// registers (3 blocks an SM) and spills; with the bound it takes 201-226
+// registers (3 blocks an SM) and spills; with the bound it takes 204-228
 // and spills nothing (2 blocks an SM).
 template <int C, int CIN>
 __global__ void __launch_bounds__(conv_tile::kThreads, 1)
@@ -197,7 +203,7 @@ segment_kernel(const float* __restrict__ x, const float* __restrict__ params,
 #pragma unroll
           for (int co = 0; co < C; ++co) v[co] = affine_relu(acc[m][k][co], bias, scale, offset, co);
           if (!last) {
-            const bool inside = gz >= 0 && gz < g.vol[0] && gy >= 0 && gy < g.vol[1] && gx >= 0 && gx < g.vol[2];
+            const bool inside = gz >= g.z_lo && gz < g.z_hi && gy >= 0 && gy < g.vol[1] && gx >= 0 && gx < g.vol[2];
             float* pd = dst + ((j0 * s1 + jm) * s2 + j2) * hcs;
 #pragma unroll
             for (int co = 0; co < C; ++co) pd[co] = inside ? v[co] : 0.0f;
@@ -250,7 +256,7 @@ segment_kernel(const float* __restrict__ x, const float* __restrict__ params,
       auto row_of = [&](const Item& c, int s) -> const float* {
         const int z = o0 - ro + c.j0 + (s / (M + 2) - 1) * d;
         const int y = o1 - ro + c.j1 + (s % (M + 2) - 1) * d;
-        if (z < 0 || z >= g.vol[0] || y < 0 || y >= g.vol[1]) return nullptr;
+        if (z < g.z_lo || z >= g.z_hi || y < 0 || y >= g.vol[1]) return nullptr;
         return x + ((((int64_t)b * g.in_dims[0] + z + g.in_halo) * g.in_dims[1] + y + g.in_halo) * g.in_dims[2] +
                     g.in_halo) * cin;
       };
@@ -401,8 +407,8 @@ int repro_megakernel_blocks_per_sm(int c, int cin, int smem) {
 // out_halo. geom, n ints: B, cin, C, k, classes, vol[3], tile[3],
 // in_dims[3], in_halo, out_dims[3], out_halo, n_params, ping, pong, ring
 // (the shared-memory layout in floats, which must be the one K2 allocates
-// for this geometry), then the k dilations. Returns a cudaError_t (0 on
-// success).
+// for this geometry), z_lo, z_hi (the valid Z interval, 0 <= z_lo <= z_hi
+// <= vol[0]), then the k dilations. Returns a cudaError_t (0 on success).
 int repro_megakernel_segment_f32(const float* x, const float* params,
                                  float* out, const int* geom, int n,
                                  void* stream) {
@@ -424,7 +430,9 @@ int repro_megakernel_segment_f32(const float* x, const float* params,
   g.ping = *p++;
   g.pong = *p++;
   g.ring = *p++;
-  if (g.k < 1 || g.k > kMaxLayers || n != kGeomFixed + g.k)
+  g.z_lo = *p++;
+  g.z_hi = *p++;
+  if (g.k < 1 || g.k > kMaxLayers || n != kGeomFixed + g.k || g.z_lo < 0 || g.z_hi < g.z_lo || g.z_hi > g.vol[0])
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < g.k; ++l) g.dil[l] = *p++;
   for (int a = 0; a < 3; ++a) {

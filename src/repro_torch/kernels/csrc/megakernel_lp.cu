@@ -4,7 +4,9 @@
 // relu((acc + bias) * scale + offset) (folded BatchNorm, and the int8
 // weights' dequant scale), fp32 accumulation over weights widened to fp32;
 // the segment may end in the fused 1x1x1 head. Positions outside the true
-// volume are set to zero after every layer but the last.
+// volume are set to zero after every layer but the last. With a narrower
+// valid Z interval [z_lo, z_hi) in the geometry it is K2r-z, as K2z is K2's
+// (megakernel.cu): rows outside it are treated as outside the volume.
 //
 // Replaces the TPU kernel src/repro/kernels/megakernel.py::_segment_kernel
 // at the reference's bf16 and int8w policies (its compute_dtype scratch,
@@ -64,7 +66,7 @@ using conv_tile::Blocking;
 using conv_tile::ceil4;
 
 constexpr int kMaxLayers = 16;
-constexpr int kGeomFixed = 23;  // ints before the dilations in the geometry array
+constexpr int kGeomFixed = 25;  // ints before the dilations in the geometry array
 constexpr int kSmemLimit = 232448;
 
 struct Geom {
@@ -73,6 +75,7 @@ struct Geom {
   int in_dims[3], in_halo;
   int out_dims[3], out_halo;
   int n_params, ping, pong, ring;  // shared-memory floats
+  int z_lo, z_hi;  // the valid Z interval, within [0, vol[0]) (K2z: narrower)
   int dil[kMaxLayers];
 };
 
@@ -285,7 +288,7 @@ segment_lp_kernel(const XT* __restrict__ x, const void* __restrict__ wq, const u
 #pragma unroll
           for (int co = 0; co < C; ++co) v[co] = affine_relu(acc[m][k][co], bias, scale, offset, co);
           if (!last) {
-            const bool inside = gz >= 0 && gz < g.vol[0] && gy >= 0 && gy < g.vol[1] && gx >= 0 && gx < g.vol[2];
+            const bool inside = gz >= g.z_lo && gz < g.z_hi && gy >= 0 && gy < g.vol[1] && gx >= 0 && gx < g.vol[2];
             float* pd = dst + ((j0 * s1 + jm) * s2 + j2) * hcs;
 #pragma unroll
             for (int co = 0; co < C; ++co) pd[co] = inside ? round_bf16(v[co]) : 0.0f;
@@ -337,7 +340,7 @@ segment_lp_kernel(const XT* __restrict__ x, const void* __restrict__ wq, const u
           const int tz = s / (M + 2), j = s % (M + 2) - 1;
           const int z = o0 - ro + j0 + (tz - 1) * d;
           const int y = o1 - ro + j1 + j * d;
-          if (z < 0 || z >= g.vol[0] || y < 0 || y >= g.vol[1]) continue;  // a tap row outside the volume
+          if (z < g.z_lo || z >= g.z_hi || y < 0 || y >= g.vol[1]) continue;  // a tap row outside the volume
           const XT* row =
               x + (((int64_t)b * g.in_dims[0] + z + g.in_halo) * g.in_dims[1] + y + g.in_halo) * g.in_dims[2] * cin +
               (int64_t)g.in_halo * cin;
@@ -437,7 +440,10 @@ int parse_geom(const int* geom, int n, Geom& g, int& c) {
   g.ping = *p++;
   g.pong = *p++;
   g.ring = *p++;
-  if (g.k < 1 || g.k > kMaxLayers || n != kGeomFixed + g.k) return (int)cudaErrorInvalidValue;
+  g.z_lo = *p++;
+  g.z_hi = *p++;
+  if (g.k < 1 || g.k > kMaxLayers || n != kGeomFixed + g.k || g.z_lo < 0 || g.z_hi < g.z_lo || g.z_hi > g.vol[0])
+    return (int)cudaErrorInvalidValue;
   for (int l = 0; l < g.k; ++l) g.dil[l] = *p++;
   for (int a = 0; a < 3; ++a) {
     if (g.tile[a] < 1) return (int)cudaErrorInvalidValue;
@@ -504,7 +510,7 @@ int repro_megakernel_lp_blocks_per_sm(int c, int x_int8, int smem) {
 // last layer's quantisation scales (C; read only when out_int8 != 0);
 // out: (B, out_dims, classes or C), int8 codes when out_int8 != 0 else
 // bf16, written at offset out_halo. geom as repro_megakernel_segment_f32's
-// (ring 0). Returns a cudaError_t (0 on success).
+// (ring 0, z_lo and z_hi included). Returns a cudaError_t (0 on success).
 int repro_megakernel_segment_bf16(const void* x, int x_int8, const void* w, const void* hw, const float* vec,
                                   void* out, int out_int8, const int* geom, int n, void* stream) {
   return segment(x, x_int8, w, 0, hw, vec, out, out_int8, geom, n, stream);

@@ -44,9 +44,17 @@ registers instead of staging boxes, so its layout (``_smem_layout`` at
 reduced widths) has no ring, its own register table
 (``REGISTERS_LP``) and its own issue cost (``ISSUE_COST_LP``).
 
+K2z (and K2r-z) is the same kernel with a narrower valid Z interval,
+``run_segment(..., z_bounds=(z_lo, z_hi))``, the reference's
+``has_z_bounds``: the sharded executor (core/spatial_shard.py) runs each
+slab's window of slab + 2 x the receptive-field radius and places the true
+volume's Z edges inside it. The bounds travel in the geometry array, so
+no window depth or bound needs a build of its own.
+
 A CUDA tensor launches K2 (K2r) or raises; a CPU tensor takes the plain
 version (``kernels/ref.py::megakernel_segment``). ``launches`` counts
-K2's launches and ``reduced_launches`` K2r's, and nothing else.
+K2's launches, ``reduced_launches`` K2r's and ``z_launches`` those with
+``z_bounds``, and nothing else.
 """
 
 from __future__ import annotations
@@ -115,10 +123,10 @@ THREADS = 32 * WARPS
 #: report for sm_90a, which chip_smoke.py phase 2 prints and
 #: tests/test_torch_gpu.py holds to the runtime's occupancy. An SM's
 #: 65,536 registers go to warps in units of 8 a thread.
-REGISTERS = {5: 224, 10: 222, 18: 201, 21: 226}
+REGISTERS = {5: 226, 10: 222, 18: 204, 21: 228}
 #: the same for K2r (csrc/megakernel_lp.cu), the most over its bf16 and
 #: int8 input instantiations (at C = 18, 168: three blocks an SM).
-REGISTERS_LP = {5: 233, 10: 187, 18: 168, 21: 185}
+REGISTERS_LP = {5: 233, 10: 187, 18: 168, 21: 183}
 SM_REGISTERS = 65_536
 
 #: K2r's first layer issues its FMAs at this cost against K2's: its taps
@@ -128,9 +136,11 @@ SM_REGISTERS = 65_536
 ISSUE_COST_LP = 1.27
 
 #: kernel launches since the counter was last reset (CPU calls don't
-#: count): K2's, and K2r's.
+#: count): K2's, K2r's, and those of either with ``z_bounds`` (K2z and
+#: K2r-z, the sharded executor's windows), which count only here.
 launches = 0
 reduced_launches = 0
+z_launches = 0
 
 _LIB = None
 _LIB_LP = None
@@ -706,18 +716,19 @@ def blocks_per_sm(seg: Segment, widths: Widths = FP32_WIDTHS) -> int:
     return int(_kernel_lp().repro_megakernel_lp_blocks_per_sm(seg.channels, int(x_int8), smem))
 
 
-def geometry(x_shape: tuple, pln: MegakernelPlan, i: int) -> list[int]:
+def geometry(x_shape: tuple, pln: MegakernelPlan, i: int, z_bounds=None) -> list[int]:
     """The geometry array K2's (K2r's) entry point takes for segment ``i``
     of ``pln`` on an input staging array of shape ``x_shape``: B, cin, C,
     k, classes (0 without the head), vol, tile, the input's dims and halo,
     the output's dims and halo, the shared-memory layout (params, ping,
-    pong, ring floats; the kernel checks it against its own), then the
-    dilations."""
+    pong, ring floats; the kernel checks it against its own), the valid Z
+    interval [z_lo, z_hi) (``ref.z_interval``: the volume's, or its
+    intersection with ``z_bounds``; K2z), then the dilations."""
     seg = pln.segments[i]
     return [
         x_shape[0], seg.cin, seg.channels, len(seg.dilations), seg.num_classes if seg.fuse_head else 0,
         *pln.vol, *seg.tile, *x_shape[1:4], seg.halo, *pln.out_dims(i), pln.out_halo(i),
-        *(int(v) for v in _smem_layout(seg, pln.widths)), *seg.dilations,
+        *(int(v) for v in _smem_layout(seg, pln.widths)), *ref.z_interval(pln.vol[0], z_bounds), *seg.dilations,
     ]
 
 
@@ -729,6 +740,7 @@ def run_segment(
     head: Optional[tuple] = None,
     deq: Optional[torch.Tensor] = None,
     qscale: Optional[torch.Tensor] = None,
+    z_bounds: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Segment ``i`` of ``pln`` on the staging array ``x``: (B, Z, Y, X,
     cin) holding the volume at offset ``segments[i].halo`` (its border is
@@ -746,13 +758,21 @@ def run_segment(
     and ``qscale`` (C,) fp32 quantises its int8 output, exactly when
     ``scale_operands`` says.
 
+    ``z_bounds`` (host ints ``(z_lo, z_hi)``; K2z, and K2r-z on a reduced
+    plan) narrows the valid Z interval to its intersection with
+    ``[0, vol[0])``: input rows outside it are read as zeros and every
+    layer's output rows but the last's are zeroed, as outside the volume.
+    The same kernels, the bounds a runtime value: no rebuild per window.
+
     On CUDA every tensor must be contiguous on x's device, the width one
     the kernel is instantiated for (5, 10, 18, 21), and the segment's
     shared memory within one block."""
-    global launches, reduced_launches
+    global launches, reduced_launches, z_launches
     _check_operands(x, pln, i, layers, head, deq, qscale)
+    if z_bounds is not None and len(z_bounds) != 2:
+        raise ValueError(f"z_bounds must be (z_lo, z_hi), got {z_bounds!r}")
     if x.device.type == "cpu":
-        return ref.megakernel_segment(x, pln, i, layers, head, deq, qscale)
+        return ref.megakernel_segment(x, pln, i, layers, head, deq, qscale, z_bounds)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     reduced = pln.widths != FP32_WIDTHS
@@ -776,7 +796,7 @@ def run_segment(
         raise ValueError(f"segment {i} needs {smem} bytes of shared memory, over the {SMEM_BUDGET} one block can use")
     _, out_dtype = pln.dtypes(i)
     out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=out_dtype, device=x.device)
-    geom = geometry(tuple(x.shape), pln, i)
+    geom = geometry(tuple(x.shape), pln, i, z_bounds)
     geom_c = (ctypes.c_int * len(geom))(*geom)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if not reduced:
@@ -784,7 +804,10 @@ def run_segment(
         err = lib.repro_megakernel_segment_f32(x.data_ptr(), params.data_ptr(), out.data_ptr(), geom_c, len(geom), stream)
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: {lib.repro_megakernel_error_string(err).decode()}")
-        launches += 1
+        if z_bounds is None:
+            launches += 1
+        else:
+            z_launches += 1
         return out
     # K2r: the conv weights at their width, the head's bf16 weights, then
     # one fp32 vector: each layer's bias, scale, offset, the head's bias,
@@ -805,5 +828,8 @@ def run_segment(
     )
     if err != 0:
         raise RuntimeError(f"reduced megakernel launch failed: {lib.repro_megakernel_lp_error_string(err).decode()}")
-    reduced_launches += 1
+    if z_bounds is None:
+        reduced_launches += 1
+    else:
+        z_launches += 1
     return out

@@ -10,7 +10,8 @@ is needed.
 ``meshnet_apply_megakernel`` is the ``cuda_megakernel`` backend: one call
 of K2 (K2r at the bf16 and int8w policies) per segment of a depth-first
 plan (kernels/megakernel.py), so the hidden activations inside a segment
-never reach device memory.
+never reach device memory. With ``z_bounds`` it is the sharded
+megakernel inner's forward on one slab window (K2z, K2r-z).
 
 ``dice`` is macro Dice from hard labels through K3, the per-class count
 kernel (kernels/dice.py): one launch per call on the card.
@@ -106,6 +107,7 @@ def meshnet_apply_megakernel(
     pln: Optional[mega_kernel.MegakernelPlan] = None,
     precision: str = "fp32",
     staging_scales: Optional[list] = None,
+    z_bounds: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Depth-first MeshNet forward (== meshnet.apply, eval mode): one K2
     launch per segment of ``pln`` (planned here when not given), the head
@@ -124,7 +126,14 @@ def meshnet_apply_megakernel(
     between segments is int8 with ``staging_scales`` (one (C,) fp32 scale
     per hidden layer; ``quantize.staging_scales_from_bn`` when not given),
     or bf16 when the model has no BatchNorm and none are given. The
-    logits are bf16."""
+    logits are bf16.
+
+    ``z_bounds``, a host pair of ints ``(z_lo, z_hi)``, narrows the Z-valid
+    interval to its intersection with ``[0, D)``: positions outside it are
+    zeroed after every layer and on the staged input, as positions outside
+    the volume are (K2z and K2r-z, one launch a segment). The sharded
+    executor's slab windows pass the true volume's extent here
+    (core/spatial_shard.py); the plan is the window's."""
     if x.ndim == 4:
         x = x[..., None]
     B, D, H, W, _ = x.shape
@@ -161,6 +170,7 @@ def meshnet_apply_megakernel(
             act, pln, i, layers, head,
             staging_scales[seg.start - 1] if deq else None,
             staging_scales[seg.start + len(seg.dilations) - 1] if qscale else None,
+            z_bounds,
         )
     return act[:, :D, :H, :W, :]
 

@@ -289,16 +289,20 @@ def quantize_staging(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ reference ---
 
 
-def conv_block_reduced(x: torch.Tensor, layer: dict, dilation: int, use_batchnorm: bool) -> torch.Tensor:
+def conv_block_reduced(
+    x: torch.Tensor, layer: dict, dilation: int, use_batchnorm: bool, *, z_same: bool = True
+) -> torch.Tensor:
     """One reduced-precision MeshNet conv block, the plain version of K1r:
     the bf16 taps and bf16 or int8 weights widened to fp32 (exact), an
     fp32 'same' dilated conv, the fused fp32 epilogue of ``fold_epilogue``,
-    one round to x's dtype (bf16) at the layer's output."""
+    one round to x's dtype (bf16) at the layer's output. ``z_same=False``
+    drops the Z padding: the sharded slab schedule supplies Z context
+    through the halo exchange (core/spatial_shard.py)."""
     from repro_torch.kernels import ref
 
     bias, scale, offset = fold_epilogue(layer, use_batchnorm)
     return ref.dilated_conv3d(
-        x, layer["w"], bias, dilation=dilation, scale=scale, offset=offset, fuse_affine=True
+        x, layer["w"], bias, dilation=dilation, scale=scale, offset=offset, fuse_affine=True, z_same=z_same
     )
 
 

@@ -5,6 +5,7 @@ Each is the CPU path of its kernel's wrapper and, on the card, the version
 arithmetic in plain tensor code and are no yardstick of speed:
 ``dilated_conv3d`` for K1 and K5 and, on a bf16 input, K1r,
 ``megakernel_segment`` for K2 and, on a bf16 or int8 staging array, K2r,
+and with ``z_bounds`` for K2z and K2r-z,
 ``dice_counts`` for K3, ``decode_attention`` for K4.
 """
 
@@ -26,6 +27,7 @@ def dilated_conv3d(
     scale: Optional[torch.Tensor] = None,
     offset: Optional[torch.Tensor] = None,
     fuse_affine: bool = False,
+    z_same: bool = True,
 ) -> torch.Tensor:
     """'Same'-padded k^3 dilated conv, channels-last, + bias (+ affine+ReLU).
 
@@ -40,11 +42,17 @@ def dilated_conv3d(
     dtype: for K1r (x bf16, w bf16 or int8) the taps and weights widen to
     fp32 exactly, and the one round to bf16 after the epilogue is
     ``quantize.conv_block_reduced``'s rounding point, the reference's.
+
+    ``z_same=False`` drops the Z padding: the output is ``2 * pad`` shorter
+    in Z, each voxel's Z context read from x (the sharded slab schedule's
+    valid-Z conv, whose context comes from the halo exchange).
     """
     k = w.shape[0]
     pad = dilation * (k - 1) // 2
+    zpad = pad if z_same else 0
     _, d, h, wd, _ = x.shape
-    xp = F.pad(x.float(), (0, 0, pad, pad, pad, pad, pad, pad))
+    d = d + 2 * zpad - 2 * pad
+    xp = F.pad(x.float(), (0, 0, pad, pad, pad, pad, zpad, zpad))
     wf = w.float()
     out = None
     for tz in range(k):
@@ -69,7 +77,29 @@ def dilated_conv3d(
     return out.to(x.dtype)
 
 
-def megakernel_segment(x: torch.Tensor, pln, i: int, layers, head=None, deq=None, qscale=None) -> torch.Tensor:
+def z_interval(depth: int, z_bounds=None) -> tuple[int, int]:
+    """The valid Z interval ``[lo, hi)`` of a volume ``depth`` deep: all of
+    it, or its intersection with ``z_bounds = (z_lo, z_hi)`` (host ints),
+    empty (``lo == hi``) when they do not overlap."""
+    if z_bounds is None:
+        return 0, depth
+    lo = min(max(int(z_bounds[0]), 0), depth)
+    return lo, max(min(int(z_bounds[1]), depth), lo)
+
+
+def _zmask(a: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """``a`` (B, Z, ...) with every Z row outside [lo, hi) selected to 0
+    (never multiplied: the value may be anything)."""
+    if lo == 0 and hi >= a.shape[1]:
+        return a
+    keep = torch.zeros(a.shape[1], dtype=torch.bool, device=a.device)
+    keep[lo:hi] = True
+    return torch.where(keep.view((1, -1) + (1,) * (a.ndim - 2)), a, torch.zeros((), dtype=a.dtype, device=a.device))
+
+
+def megakernel_segment(
+    x: torch.Tensor, pln, i: int, layers, head=None, deq=None, qscale=None, z_bounds=None
+) -> torch.Tensor:
     """Segment ``i`` of a megakernel plan, the same staging arrays in and
     out as K2 and K2r (``kernels/megakernel.py::run_segment``), computed
     layer by layer over the whole volume instead of tile by tile.
@@ -87,15 +117,22 @@ def megakernel_segment(x: torch.Tensor, pln, i: int, layers, head=None, deq=None
     quantised to int8 (``quantize_staging``'s arithmetic) when ``qscale``
     is given, else rounded to bf16, and the fused head summed in fp32 over
     the bf16 activations and its bf16 weights, its bias added, then one
-    round to bf16."""
+    round to bf16.
+
+    ``z_bounds`` (K2z, K2r-z) narrows the valid Z interval to its
+    intersection with the volume's (``z_interval``): the input's rows and
+    every layer's output rows but the last's outside it are selected to
+    zero, as positions outside the volume are."""
     seg = pln.segments[i]
     h = seg.halo
     vol = pln.vol
     padded = pln.padded(seg)
     reduced = x.dtype != torch.float32
+    lo, hi = z_interval(vol[0], z_bounds)
     act = x[:, h : h + vol[0], h : h + vol[1], h : h + vol[2], :]
     if reduced:
         act = act.float() if deq is None else act.float() * deq
+    act = _zmask(act, lo, hi)
     last = len(layers) - 1
     for li, ((w, b, scale, offset), d) in enumerate(zip(layers, seg.dilations)):
         if li == last:
@@ -103,6 +140,8 @@ def megakernel_segment(x: torch.Tensor, pln, i: int, layers, head=None, deq=None
         act = dilated_conv3d(act, w, b, dilation=d, scale=scale, offset=offset, fuse_affine=True)
         if reduced and not (li == last and qscale is not None):
             act = act.to(torch.bfloat16).float()
+        if li < last:
+            act = _zmask(act, lo, hi)
     if reduced:
         if qscale is not None:
             act = torch.clamp(torch.round(torch.div(act, qscale)), -127, 127).to(torch.int8)

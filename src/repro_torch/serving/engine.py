@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import resolve_device, synchronize, tree
 from repro_torch.core import pipeline as pl
+from repro_torch.core import spatial_shard
 from repro_torch.kernels import quantize
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
@@ -198,9 +199,14 @@ class SegmentationEngine:
     """Server-side Brainchop on one device (``device=None``: the CUDA card,
     which must exist). ``params`` and the mask model's params must already
     be on that device. ``precision`` is the engine's default storage policy
-    ("auto" resolves to fp32 in the port); a request may name another. The
-    slab count of the reference's sharded executors stays on
-    ``PipelineConfig.shard_devices`` until the multi-GPU slice."""
+    ("auto" resolves to fp32 in the port); a request may name another.
+
+    ``devices`` is the engine's default Z-slab count for the sharded
+    executors (core/spatial_shard.py; ``PipelineConfig.shard_devices`` when
+    not given): each request's inference runs on the first ``devices`` of
+    the host's devices of the engine's kind, checked once here
+    (``ShardGeometryError`` when the host has fewer). A request may name
+    another count (``submit(devices=...)``; 1 runs it on one device)."""
 
     def __init__(
         self,
@@ -209,6 +215,7 @@ class SegmentationEngine:
         *,
         mask_model=None,
         budget: Optional[MemoryBudget] = None,
+        devices: Optional[int] = None,
         precision: Optional[str] = None,
         device=None,
     ):
@@ -217,8 +224,11 @@ class SegmentationEngine:
         self.cfg = pipeline_cfg
         self.mask_model = mask_model
         self.budget = budget or MemoryBudget.h100()
+        self.devices = devices or pipeline_cfg.shard_devices
         self.precision = precision or pipeline_cfg.precision
         self._prepared: dict[str, object] = {}
+        if self.devices and self.devices > 1:
+            spatial_shard.mesh_for(self.devices, self.device.type)
         self.log = TelemetryLog()
 
     def _params_for(self, precision: str):
@@ -249,11 +259,13 @@ class SegmentationEngine:
         *,
         mode: Optional[str] = None,
         executor: Optional[str] = None,
+        devices: Optional[int] = None,
         precision: Optional[str] = None,
     ) -> pl.PipelineResult:
         """Run one volume synchronously; the keyword arguments override the
-        engine's defaults for this request only."""
-        return self._run_request(vol, mode=mode, executor=executor, precision=precision)
+        engine's defaults for this request only (``devices=None`` keeps the
+        engine's slab count, ``devices=1`` runs on one device)."""
+        return self._run_request(vol, mode=mode, executor=executor, devices=devices, precision=precision)
 
     def _run_request(
         self,
@@ -261,6 +273,7 @@ class SegmentationEngine:
         *,
         mode: Optional[str] = None,
         executor: Optional[str] = None,
+        devices: Optional[int] = None,
         precision: Optional[str] = None,
     ) -> pl.PipelineResult:
         """Resolve the request's defaults, run the pipeline, log telemetry."""
@@ -271,6 +284,7 @@ class SegmentationEngine:
             mode=mode,
             budget=self.budget,
             executor=executor or self.cfg.executor,
+            shard_devices=devices if devices is not None else self.devices,
             precision=prec,
         )
         res = pl.run(

@@ -14,8 +14,11 @@ and each weight tensor once a launch, so ``bytes(batch=N) < N *
 bytes(batch=1)``. ``EXECUTOR_MODELS`` maps each executor to its model;
 the executor registry wires them to its specs (core/executors.py), and
 ``pipeline.run`` stamps the result on ``TelemetryRecord.hbm_bytes_modeled``.
-The sharded family's collective and HBM models come with the multi-GPU
-slice.
+The sharded family (core/spatial_shard.py) prices its halo traffic between
+devices with ``meshnet_collective_bytes`` (stamped on
+``collective_bytes_modeled``) and its device-memory traffic with
+``meshnet_sharded_bytes``: the reference's conventions, over the port's
+inner models.
 """
 
 from __future__ import annotations
@@ -137,8 +140,54 @@ def meshnet_megakernel_bytes(cfg, vol: Shape3, batch: int = 1, precision: str = 
     return pln.hbm_bytes(batch)
 
 
+def meshnet_collective_bytes(cfg, vol: Shape3, num_devices: int, batch: int = 1, precision: str = "fp32") -> int:
+    """Modeled bytes between devices of one Z-sharded forward, the
+    reference's convention for the whole family: each of the ``n - 1``
+    slab boundaries exchanges, over the layer-wise schedule, ``2 *
+    sum(dilations)`` Z-slices of the hidden activation, both directions
+    together,
+
+        per_boundary = 2 * sum(dilations) * H * W * C_hidden * act_bytes
+
+    (the megakernel inner's one-shot fetch of the radius moves as many
+    slices once, at the input's width; the one formula is the
+    convention). Reduced policies exchange bf16 halos, so the bill halves.
+    Zero on one device."""
+    n = int(num_devices)
+    if n <= 1:
+        return 0
+    _, h, w = (int(s) for s in vol)
+    per_boundary = 2 * sum(cfg.dilations) * h * w * cfg.channels * quantize.act_bytes(precision)
+    return batch * (n - 1) * per_boundary
+
+
+def meshnet_sharded_bytes(
+    inner: str, cfg, vol: Shape3, num_devices: int, batch: int = 1, precision: str = "fp32"
+) -> int:
+    """Modeled device-memory bytes of one Z-sharded forward: every slab
+    runs the inner's schedule, so ``n`` times the inner's model at a
+    slab's shape. The megakernel inner is priced at its window, the slab
+    and the radius a side (what its tiles read); the layer-wise inners at
+    the bare slab, their halos being ``meshnet_collective_bytes``'s.
+    Raises ``ShardGeometryError`` when Z does not divide."""
+    n = int(num_devices)
+    d, h, w = (int(s) for s in vol)
+    if d % n:
+        from repro_torch.core.spatial_shard import ShardGeometryError
+
+        raise ShardGeometryError(f"Z dim {d} not divisible by {n} slabs")
+    dloc = d // n
+    if inner == "cuda_megakernel":
+        radius = sum(cfg.dilations)
+        per_dev = meshnet_megakernel_bytes(cfg, (dloc + 2 * radius, h, w), batch=batch, precision=precision)
+    else:
+        per_dev = EXECUTOR_MODELS[inner](cfg, (dloc, h, w), batch=batch, precision=precision)
+    return n * per_dev
+
+
 #: executor name -> its modeled-bytes function, the mapping the registry
-#: wires up; the views schedule (K5) serves no executor.
+#: wires up; the views schedule (K5) serves no executor, and the sharded
+#: family prices itself through ``meshnet_sharded_bytes``.
 EXECUTOR_MODELS = {
     "torch": meshnet_plain_bytes,
     "cuda_fused": meshnet_fused_bytes,

@@ -1,4 +1,5 @@
-"""K1-K5, K1r and K2r and their paths on the CUDA card, against their plain versions
+"""K1-K5, K1r, K2r and K2z and their paths on the CUDA card (the sharded
+executors on one card's device list included), against their plain versions
 on the same card (and a train step and LM decoding against the CPU). Marked
 ``gpu``: without a card every test skips (the fixture decides, at run
 time). Run on a machine with an H100:
@@ -805,3 +806,147 @@ def test_reduced_megakernel_rejects_what_it_does_not_take(cuda):
     x3, pln3, (layers3, head3) = setup(3)
     with pytest.raises(ValueError, match="Cout=3"):
         mk.run_segment(x3, pln3, 0, layers3, head3)
+
+
+# ---------------------------------------------- K2z, K2r-z, the sharded family ---
+
+
+def _junk_outside(t, vol, lo, hi, h):
+    """A copy of staging array t (the volume ``vol`` at offset h) with its
+    border poisoned and the volume's rows outside [lo, hi) set to junk:
+    NaN for fp32 and bf16, 100 for int8, values no bounded kernel may
+    read."""
+    region = (slice(None),) + tuple(slice(h, h + v) for v in vol) + (slice(None),)
+    out = _poisoned(t, region)
+    junk = 100 if t.dtype == torch.int8 else float("nan")
+    for z in [z for z in range(vol[0]) if not lo <= z < hi]:
+        out[:, h + z, h : h + vol[1], h : h + vol[2]] = junk
+    return out
+
+
+def _multi_layer_plan(cfg, vol, widths):
+    """gwm_light cut into segments of 2, 1, 1, 1, 2 and 2 layers, each at
+    the largest of a few tiles whose layout fits one block: the per-layer
+    mask inside a segment acts only where a segment has several layers."""
+    segments = []
+    for i, j in ((0, 2), (2, 3), (3, 4), (4, 5), (5, 7), (7, 9)):
+        for t in ((8, 8, 16), (4, 4, 16), (2, 2, 8)):
+            seg = mk.Segment(i, cfg.dilations[i:j], cfg.in_channels if i == 0 else cfg.channels, cfg.channels, t,
+                             j == len(cfg.dilations), cfg.num_classes)
+            if mk._segment_smem_bytes(seg, widths) <= mk.SMEM_BUDGET:
+                segments.append(seg)
+                break
+    return mk.MegakernelPlan(tuple(segments), vol, widths)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8w"])
+@pytest.mark.parametrize("bounds", [(5, 17), (-3, 9), (12, 40), (0, 23)], ids=["inside", "low", "high", "whole"])
+@pytest.mark.parametrize("plan", ["planner", "several_segments", "multi_layer"])
+def test_zbounded_segments_match_plain_version(cuda, precision, bounds, plan):
+    """K2z (fp32) and K2r-z (bf16, int8w) segment by segment against their
+    plain versions with the same bounds, each staging array the bounded
+    kernel's output of the segment before, its border poisoned and its
+    rows outside the bounds junk: the staged input's mask and, on the
+    multi-layer plan, every layer's hold."""
+    from repro_torch.kernels import quantize
+
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    shape = (1, 23, 20, 18)
+    params = quantize.prepare_params(_params_with_bn(cfg, 17, cuda), cfg, precision)
+    scales = quantize.staging_scales_from_bn(params, cfg) if precision == "int8w" else None
+    if plan == "multi_layer":
+        pln = _multi_layer_plan(cfg, shape[1:], mk.plan_widths(precision, True))
+        assert len(pln.segments) == 6
+    else:
+        budget = mk.SMEM_BUDGET if plan == "planner" else 40_000
+        pln = mk.plan_for_config(cfg, shape[1:], smem_budget=budget, precision=precision)
+    x = torch.rand(shape + (1,), generator=torch.Generator().manual_seed(3)).to(cuda)
+    x = {"fp32": x, "bf16": x.to(torch.bfloat16), "int8w": quantize.quantize_input(x)}[precision]
+    lo, hi = ref.z_interval(shape[1], bounds)
+    h = pln.segments[0].halo
+    act = torch.zeros((1,) + tuple(p + 2 * h for p in pln.padded(pln.segments[0])) + (1,), dtype=x.dtype, device=cuda)
+    act[:, h : h + shape[1], h : h + shape[2], h : h + shape[3]] = x
+    for i, seg in enumerate(pln.segments):
+        layers, head = ops.megakernel_operands(params, cfg, seg, precision)
+        deq, qs = mk.scale_operands(pln, i) if precision != "fp32" else (False, False)
+        operands = (layers, head, scales[seg.start - 1] if deq else None,
+                    scales[seg.start + len(seg.dilations) - 1] if qs else None)
+        act = _junk_outside(act, pln.vol, lo, hi, seg.halo)
+        before = (mk.launches, mk.reduced_launches, mk.z_launches)
+        out = mk.run_segment(act, pln, i, *operands, z_bounds=bounds)
+        torch.cuda.synchronize()
+        assert (mk.launches, mk.reduced_launches, mk.z_launches) == (before[0], before[1], before[2] + 1)
+        w = _written(pln, i)
+        got, expect = out[w], ref.megakernel_segment(act, pln, i, *operands, z_bounds=bounds)[w]
+        assert torch.isfinite(got.float()).all()
+        if precision == "fp32":
+            err = float((got - expect).abs().max()) / float(expect.abs().max())
+            assert err <= REL_TOL, (i, err)
+        else:
+            ok, what = _lp_gap(got, expect)
+            assert ok, (i, what)
+        act = out
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8w"])
+def test_whole_volume_bounds_are_bit_equal_to_k2(cuda, precision):
+    """K2 (K2r) with bounds of the whole volume, or wider, is bit-equal to
+    K2 (K2r) without them: the same kernels, the same interval."""
+    from repro_torch.kernels import quantize
+
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = quantize.prepare_params(_params_with_bn(cfg, 19, cuda), cfg, precision)
+    x = torch.rand((1, 40, 36, 44), generator=torch.Generator().manual_seed(4)).to(cuda)
+    plain = ops.meshnet_apply_megakernel(params, x, cfg, precision=precision)
+    for bounds in [(0, 40), (-7, 90)]:
+        got = ops.meshnet_apply_megakernel(params, x, cfg, precision=precision, z_bounds=bounds)
+        assert torch.equal(got, plain), bounds
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8w"])
+@pytest.mark.parametrize("inner", ["torch", "cuda_fused", "cuda_megakernel"])
+def test_sharded_family_on_one_card(cuda, inner, precision):
+    """sharded_<inner> on [cuda:0] * n (n = 2, 4, 8; slabs of 24 to 6 rows,
+    thinner than the radius 46) against the single-device inner: 1e-4 at
+    fp32 with the segmentation equal, 2e-2 reduced, relative to the
+    largest logit; the megakernel inner launches K2z (K2r-z) once a
+    segment of each window's plan, and K2 and K2r never."""
+    from repro_torch.core import spatial_shard
+
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = _params_with_bn(cfg, 23, cuda)
+    x = torch.rand((1, 48, 40, 36), generator=torch.Generator().manual_seed(5)).to(cuda)
+    want = executors.apply(inner, params, x, cfg, precision=precision).float()
+    top = float(want.abs().max())
+    for n in (2, 4, 8):
+        before = (mk.launches, mk.reduced_launches, mk.z_launches)
+        got = spatial_shard.sharded_executor_apply(inner, params, x, cfg, precision=precision,
+                                                   devices=[cuda] * n).float()
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip((mk.launches, mk.reduced_launches, mk.z_launches), before))
+        if inner == "cuda_megakernel":
+            window = (48 // n + 2 * sum(cfg.dilations), 40, 36)
+            segments = len(mk.plan_for_config(cfg, window, precision=precision).segments)
+            assert launched == (0, 0, n * segments), (n, launched)
+        else:
+            assert launched == (0, 0, 0)
+        err = float((got - want).abs().max())
+        assert err <= (1e-4 if precision == "fp32" else 2e-2) * top, (n, err, top)
+        if precision == "fp32":
+            assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_pipeline_shard_devices_on_the_card(cuda):
+    """shard_devices=2 on the card: served where the host has 2 cards,
+    shard_geometry where it has one."""
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = _params_with_bn(cfg, 29, cuda)
+    pc = pipeline.PipelineConfig(model=cfg, volume_shape=(32, 32, 32), min_component_size=4,
+                                 executor="cuda_megakernel", shard_devices=2)
+    vol = torch.rand((32, 32, 32), generator=torch.Generator().manual_seed(6)) * 100
+    res = pipeline.run(pc, params, vol)
+    assert res.record.executor == "sharded_cuda_megakernel@2"
+    if torch.cuda.device_count() >= 2:
+        assert res.record.status == "ok", res.record.fail_type
+    else:
+        assert (res.record.status, res.record.fail_type) == ("fail", "shard_geometry")

@@ -241,9 +241,10 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
     [
         # K2 at the reduced policies serves now, in either mode (K2r's
         # plain version here): the request is served and stamped with the
-        # executor and policy that ran. What still waits is sharding.
+        # executor and policy that ran. Sharding runs too: on a host with
+        # one CPU device, two slabs lack a device, and the record says so.
         (dict(mode="subvolume", cube=8, overlap=4, executor="cuda_megakernel", precision="bf16"), None),
-        (dict(shard_devices=2), "multi-GPU slice"),
+        (dict(shard_devices=2), "shard_geometry"),
         (dict(executor="cuda_megakernel", precision="bf16"), None),
     ],
     ids=["subvolume_k2_bf16", "shard_devices", "k2_bf16"],
@@ -251,6 +252,11 @@ def test_entry_points_without_device_need_cuda(monkeypatch):
 def test_later_slices_raise(change, match):
     _, port = _both(MAIN, seed=70)
     pc = dataclasses.replace(pipeline.PipelineConfig(model=port["cfg"], volume_shape=(16, 16, 16)), **change)
+    if match == "shard_geometry":
+        res = pipeline.run(pc, port["params"], _volume((16, 16, 16), seed=71), device="cpu")
+        assert (res.record.status, res.record.fail_type) == ("fail", "shard_geometry")
+        assert res.record.executor == "sharded_torch@2" and res.segmentation is None
+        return
     if match is None:
         res = pipeline.run(pc, port["params"], _volume((16, 16, 16), seed=71), device="cpu")
         assert res.record.status == "ok", res.record.fail_type

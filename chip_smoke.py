@@ -83,10 +83,15 @@ staging) a segment. Phases, each printed on lines of its own:
 8. LM       8a  K4 against its plain version on the card: the reference's
                 four kernel cases and its bf16 case, TinyLlama's served
                 shape (B 4, H 32, KV 4, hd 64, S 1024) at pos 0, 1, 511,
-                512, 1023 (fp32) and 255, 1023 (bf16); a sliding-window
-                ring cache past its window (K4 called with min(pos, S-1)),
-                and that attention_decode against the CPU's; fp32 within
-                2e-5 absolute, bf16 within 3e-2;
+                512, 1023 (fp32) and 255, 1023 (bf16), each with pos a
+                host int and a (1,) int32 on the card (bit-equal); one CUDA
+                graph of K4 at the served shape replayed at 5 positions
+                written into its pos tensor (fp32 and bf16); one kernel a
+                call under torch.profiler; two calls back to back on one
+                workspace, its counters back at 0; a sliding-window ring
+                cache past its window (K4 called with min(pos, S-1)), and
+                that attention_decode against the CPU's; fp32 within 2e-5
+                absolute, bf16 within 3e-2;
             8b  K5 against the plain version (5e-5 relative) and bit-equal
                 to K1, d = 1..16, fused and not, 1->5 and 5->5 at
                 (2, 31, 33, 17) and 21->21; K5's path, its role as K1's
@@ -103,9 +108,11 @@ staging) a segment. Phases, each printed on lines of its own:
                 16 greedy tokens: each step's logits within 1e-4 of the
                 largest, the tokens equal); forward against decode_step at
                 22 layers over 64 tokens within 1e-3; times: K4 at the
-                served shape (kernel, plain, SDPA: device time per call
-                with a cold L2; the bound), a decode step at 4 slots, one
-                step under torch.profiler
+                served shape at pos 255 and 1023 (kernel with pos a host
+                int and on the card, plain, SDPA with enable_gqa: device
+                time per call with a cold L2; the bound), a decode step at
+                4 slots, one step under torch.profiler (its kernels, K4
+                exactly 22 of them, and the card's busy ms)
 9. reduced and sub-volume (segmentation, gwm_light with brain_mask_fast):
             9a  K1r against its plain version on the card, bf16 and int8
                 weights, Cout 5/10/18/21, Cin 1/5/64, d 1/3/16/40 at
@@ -139,13 +146,16 @@ staging) a segment. Phases, each printed on lines of its own:
                 256^3 plan at bf16 and int8w (kernel, plain, the bound:
                 the function's operations over the bf16 tensor-core peak or
                 its bytes at the policy's widths, blocks an SM held to the
-                runtime's, registers); the whole forwards at fp32, bf16 and
-                int8w under cuda_fused and cuda_megakernel
+                runtime's, registers), each plan's segments and int8
+                crossings; the whole forwards at fp32, bf16 and int8w under
+                cuda_fused and cuda_megakernel
             9e  K2r against its plain version at 256^3, segment by segment
                 on the same staging arrays with poisoned borders (NaN for
                 bf16, -128 for int8), at bf16 and int8w, on the planner's
-                plan (gwm_light and brain_mask_fast) and on a forced plan
-                of multi-layer segments (gwm_light): int8 codes within +-1
+                plan (gwm_light and brain_mask_fast; its segments and int8
+                crossings printed: under int8w int8 at the reference
+                plan's boundaries only) and on a forced plan of
+                multi-layer segments (gwm_light): int8 codes within +-1
                 and equal at >= 99.9 %, bf16 within one bf16 step at the
                 array's largest magnitude; then each forward under
                 cuda_megakernel against the plain version of its plan,
@@ -153,8 +163,19 @@ staging) a segment. Phases, each printed on lines of its own:
                 logit (int8 staging: the reference's staged gate), the gaps
                 to the plain reduced forward and to fp32 and the argmax
                 agreements printed
-10. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r)
-11. ok      the last line, {"ok": true, "device": {...}}
+10. shard   gwm_light at 256^3 on 4 Z-slabs ([cuda:0] * 4 on one card):
+            10a K2z and K2r-z against their plain versions on the first
+                and last windows, rows outside the bounds junk;
+            10b main paths: sharded_cuda_megakernel@4 at fp32, bf16 and
+                int8w (the single-device and window plans' segments and
+                int8 crossings printed) and
+                sharded_cuda_fused@4, each held to its single-device
+                forward; pipeline.run(shard_devices=4);
+            10c K2z and K2r-z times per window segment, and the sharded
+                forwards beside the single-device ones
+11. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r,
+            K2z)
+12. ok      the last line, {"ok": true, "device": {...}}
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line. Without a CUDA device (and without --cpu-rehearsal) it exits 1.
@@ -1020,12 +1041,69 @@ def phase_parity_k4(dev) -> dict:
     for B, H, KV, hd, S, pos, dtype in cases:
         q, k, v = k4_inputs(gen, B, H, KV, hd, S, dtype, dev)
         got = k4.decode_attention(q, k, v, pos)
+        on_card = k4.decode_attention(q, k, v, torch.full((1,), pos, dtype=torch.int32, device=dev))
         torch.cuda.synchronize()
         err = float((got.float() - ref.decode_attention(q, k, v, pos).float()).abs().max())
         tol = K4_FP32_TOL if dtype == f32 else K4_BF16_TOL
-        print(f"K4 B={B} H={H} KV={KV} hd={hd} S={S} pos={pos} {str(dtype)[6:]}: max_abs_err {err:.3e} (gate {tol})")
+        same = bool(torch.equal(got, on_card))
+        print(f"K4 B={B} H={H} KV={KV} hd={hd} S={S} pos={pos} {str(dtype)[6:]}: max_abs_err {err:.3e} (gate {tol}); "
+              f"pos on the card gives the host int's result bit for bit: {same}")
         check(err <= tol, f"K4 abs err {err} > {tol} at B={B} H={H} KV={KV} hd={hd} S={S} pos={pos} {dtype}")
+        check(same, f"K4 with pos on the card differs from the host int's at B={B} S={S} pos={pos} {dtype}")
         worst[dtype] = max(worst[dtype], err)
+
+    # One CUDA graph of K4 at the served shape, replayed at positions
+    # written into the same (1,) int32 tensor: each replay is the plain
+    # version at that pos.
+    for dtype in (f32, bf16):
+        q, k, v = k4_inputs(gen, LM_SLOTS, 32, 4, 64, LM_MAX_SEQ, dtype, dev)
+        pos_dev = torch.zeros((1,), dtype=torch.int32, device=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k4.decode_attention(q, k, v, pos_dev)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = k4.decode_attention(q, k, v, pos_dev)
+        errs = []
+        for pos in (0, K4_TIMED_POS, 700, LM_MAX_SEQ - 1, 1500):
+            pos_dev.fill_(pos)
+            graph.replay()
+            torch.cuda.synchronize()
+            errs.append(float((out.float() - ref.decode_attention(q, k, v, pos).float()).abs().max()))
+        tol = K4_FP32_TOL if dtype == f32 else K4_BF16_TOL
+        print(f"K4 CUDA graph ({str(dtype)[6:]}, served shape) replayed at pos 0, {K4_TIMED_POS}, 700, "
+              f"{LM_MAX_SEQ - 1}, 1500: max_abs_err {max(errs):.3e} (gate {tol})")
+        check(max(errs) <= tol, f"K4 graph replays {errs} over {tol}")
+        worst[dtype] = max(worst[dtype], max(errs))
+        del graph, out
+
+    # One kernel a call, counted by torch.profiler in a process of its own
+    # (in this one, after the profiled sessions of phases 5 and 7d, a session
+    # around one call of some microseconds came back with no device event on
+    # the card, where a fresh process's sessions show the kernel); and two
+    # calls back to back that share the workspace.
+    run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--k4-kernels"], capture_output=True,
+                         text=True, timeout=600)
+    check(run.returncode == 0, f"the K4 kernel count exited {run.returncode}: {run.stderr[-2000:]}")
+    kernels = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"K4 kernels a call (torch.profiler, a fresh process): host pos {kernels['host']}, pos on the card "
+          f"{kernels['on_card']}")
+    check(all(len(n) == 1 and sum(n.values()) == 1 and "decode_attn" in next(iter(n)) for n in kernels.values()),
+          f"K4 calls ran {kernels}, not one kernel each")
+    q, k, v = k4_inputs(gen, LM_SLOTS, 32, 4, 64, LM_MAX_SEQ, f32, dev)
+    spaces = len(k4._WORKSPACES)
+    first = k4.decode_attention(q, k, v, LM_MAX_SEQ - 1)
+    second = k4.decode_attention(q, k, v, torch.full((1,), 100, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    errs = [float((first - ref.decode_attention(q, k, v, LM_MAX_SEQ - 1)).abs().max()),
+            float((second - ref.decode_attention(q, k, v, 100)).abs().max())]
+    counts = k4._WORKSPACES[(q.device, LM_SLOTS, 4, k4.nsplit(LM_MAX_SEQ, LM_SLOTS * 4), 8, 64)][1]
+    print(f"K4 back to back at pos {LM_MAX_SEQ - 1} and 100 on one workspace: max_abs_err {max(errs):.3e}; "
+          f"workspaces {spaces} -> {len(k4._WORKSPACES)}; counters left at {int(counts.abs().sum())}")
+    check(max(errs) <= K4_FP32_TOL and len(k4._WORKSPACES) == spaces and int(counts.abs().sum()) == 0,
+          f"K4 back to back: {errs}, counters {counts.tolist()}")
 
     # A sliding-window ring cache (S = window = 1024) at pos 1500, past the
     # window: attention_decode writes slot 1500 % S and calls K4 with
@@ -1113,6 +1191,28 @@ def phase_views(dev, size: int, k1_rows) -> dict:
     return {"err": (worst_abs, worst_rel), "launches": counts["K5"], "rows": rows}
 
 
+def k4_kernels_a_call() -> dict:
+    """The kernels torch.profiler sees on the card during one K4 call at the
+    served shape (after a warm-up call that builds the kernel and makes its
+    workspace), pos a host int and a (1,) int32 on the card: {kernel name:
+    count} of each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    q, k, v = k4_inputs(torch.Generator().manual_seed(SEED + 82), LM_SLOTS, 32, 4, 64, LM_MAX_SEQ, torch.float32,
+                        dev)
+    pos_dev = torch.full((1,), K4_TIMED_POS, dtype=torch.int32, device=dev)
+    k4.decode_attention(q, k, v, K4_TIMED_POS)
+    out = {}
+    for name, pos in (("host", K4_TIMED_POS), ("on_card", pos_dev)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            k4.decode_attention(q, k, v, pos)
+            torch.cuda.synchronize()
+        out[name] = {e.key: e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+    return out
+
+
 def lm_requests(gen, cfg, n, prompt_range, new):
     lens = torch.randint(prompt_range[0], prompt_range[1] + 1, (n,), generator=gen).tolist()
     return [Request(prompt=torch.randint(0, cfg.vocab_size, (m,), generator=gen).tolist(), max_new_tokens=new, id=i)
@@ -1153,12 +1253,15 @@ def profile_decode_step(params, cfg, cache, pos: int, tokens, unprofiled_ms: flo
     if not cuda:
         return
     busy = sum(e.self_device_time_total for e in cuda) / 1e3
-    k4_ms = sum(e.self_device_time_total for e in cuda if "decode_attn" in e.key or "combine_kernel" in e.key) / 1e3
+    k4_rows = [e for e in cuda if "decode_attn" in e.key]
+    k4_ms = sum(e.self_device_time_total for e in k4_rows) / 1e3
     gemm_ms = sum(e.self_device_time_total for e in cuda
                   if any(w in e.key.lower() for w in ("gemm", "gemv", "cutlass", "xmma", "matmul", "dot_kernel"))) / 1e3
     print("profile decode step " + json.dumps(dict(
-        device_busy_ms=busy, k4_ms=k4_ms, gemm_ms=gemm_ms, other_device_ms=busy - k4_ms - gemm_ms,
+        device_busy_ms=busy, kernels=sum(e.count for e in cuda), k4_kernels=sum(e.count for e in k4_rows),
+        k4_ms=k4_ms, gemm_ms=gemm_ms, other_device_ms=busy - k4_ms - gemm_ms,
         unprofiled_step_ms=unprofiled_ms, host_share_of_unprofiled_step=1 - busy / unprofiled_ms)))
+    check(sum(e.count for e in k4_rows) == cfg.num_layers, f"a decode step ran {[e.count for e in k4_rows]} K4 kernels")
 
 
 def phase_lm(dev, card: str, rehearsal: bool) -> dict:
@@ -1219,30 +1322,34 @@ def phase_lm(dev, card: str, rehearsal: bool) -> dict:
 
     # Times at the served shape: K4 per call (device time with a cold L2;
     # and the CUDA-event time of back-to-back calls, the host's time
-    # included), a decode step at 4 slots.
+    # included) at pos 255 and at the full cache, pos as a host int and on
+    # the card, beside its plain version and SDPA; a decode step at 4 slots.
     _, peak_flops, peak_bw = peaks_for(card)
     gen = torch.Generator().manual_seed(SEED + 87)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = k4_inputs(gen, LM_SLOTS, H, KV, hd, LM_MAX_SEQ, torch.float32, dev)
-    n_valid = K4_TIMED_POS + 1
-    mask = (torch.arange(LM_MAX_SEQ, device=dev) < n_valid)[None, None, None, :]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, heads, S, hd) views
-    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
-    lib_err = float((lib - ref.decode_attention(q, k, v, K4_TIMED_POS)).abs().max())
-    kernel = lambda: k4.decode_attention(q, k, v, K4_TIMED_POS)  # noqa: E731
-    plain = lambda: ref.decode_attention(q, k, v, K4_TIMED_POS)  # noqa: E731
-    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
-    kernel_ms, plain_ms, library_ms = cold_ms(kernel), cold_ms(plain), cold_ms(library)
-    call_ms = {name: time_ms(fn) for name, fn in (("kernel", kernel), ("plain", plain), ("library", library))}
-    full_ms = cold_ms(lambda: k4.decode_attention(q, k, v, LM_MAX_SEQ - 1))
-    ops_, bytes_ = k4_work(LM_SLOTS, H, KV, hd, n_valid, 4)
-    bound_ms, bound_by = bound(ops_, bytes_, peak_flops, peak_bw)
-    full_bound = bound(*k4_work(LM_SLOTS, H, KV, hd, LM_MAX_SEQ, 4), peak_flops, peak_bw)[0]
-    nsplit, split_len = k4.split(n_valid, LM_SLOTS * KV)
-    k4_row = dict(B=LM_SLOTS, H=H, KV=KV, hd=hd, S=LM_MAX_SEQ, pos=K4_TIMED_POS, chunks=nsplit, chunk=split_len,
-                  kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                  ops=ops_, bytes=bytes_, library_abs_err=lib_err, full_cache_kernel_ms=full_ms,
-                  full_cache_bound_ms=full_bound, call_ms_cuda_events=call_ms)
+    at = {}
+    for pos in (K4_TIMED_POS, LM_MAX_SEQ - 1):
+        n_valid = pos + 1
+        mask = (torch.arange(LM_MAX_SEQ, device=dev) < n_valid)[None, None, None, :]
+        pos_dev = torch.full((1,), pos, dtype=torch.int32, device=dev)
+        kernel = lambda: k4.decode_attention(q, k, v, pos)  # noqa: E731
+        on_card = lambda: k4.decode_attention(q, k, v, pos_dev)  # noqa: E731
+        plain = lambda: ref.decode_attention(q, k, v, pos)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        lib_err = float((library().transpose(1, 2) - plain()).abs().max())
+        ops_, bytes_ = k4_work(LM_SLOTS, H, KV, hd, n_valid, 4)
+        bound_ms, bound_by = bound(ops_, bytes_, peak_flops, peak_bw)
+        at[pos] = dict(kernel_ms=cold_ms(kernel), kernel_pos_on_card_ms=cold_ms(on_card), plain_ms=cold_ms(plain),
+                       library_ms=cold_ms(library), bound_ms=bound_ms, bound_by=bound_by, ops=ops_, bytes=bytes_,
+                       library_abs_err=lib_err,
+                       call_ms_cuda_events={name: time_ms(fn) for name, fn in (
+                           ("kernel", kernel), ("kernel_pos_on_card", on_card), ("plain", plain),
+                           ("library", library))})
+    k4_row = dict(B=LM_SLOTS, H=H, KV=KV, hd=hd, S=LM_MAX_SEQ, pos=K4_TIMED_POS,
+                  chunks=k4.nsplit(LM_MAX_SEQ, LM_SLOTS * KV), blocks=k4.nsplit(LM_MAX_SEQ, LM_SLOTS * KV) * KV * LM_SLOTS,
+                  **at[K4_TIMED_POS], full_cache={"pos": LM_MAX_SEQ - 1, **at[LM_MAX_SEQ - 1]})
     print("times K4 " + json.dumps(k4_row))
 
     tokens4 = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1), generator=gen).to(dev)
@@ -1428,6 +1535,13 @@ def k2r_stagings(pln, params, cfg, x: torch.Tensor, precision: str, scales):
             act = poisoned(k2.run_segment(act, pln, i, *operands), written(pln, i))
 
 
+def plan_text(pln) -> str:
+    """A plan's segments (first layer and tile of each) and int8 crossings."""
+    int8_at = [seg.start for i, seg in enumerate(pln.segments) if i and pln.dtypes(i)[0] == torch.int8]
+    return (f"{len(pln.segments)} segments at layers {[seg.start for seg in pln.segments]}, tiles "
+            f"{[list(seg.tile) for seg in pln.segments]}, {pln.crossings} int8 crossings (at layers {int8_at})")
+
+
 @contextlib.contextmanager
 def plain_segments():
     """Within the block, every segment ops.meshnet_apply_megakernel runs
@@ -1481,6 +1595,7 @@ def phase_reduced_megakernel(dev, size: int) -> float:
             if name == "gwm_light":
                 plans.append(("forced", forced_k2r_plan(cfg, (size,) * 3, pln.widths)))
             for which, p in plans:
+                print(f"K2r {name} {precision} {which} plan at {size}^3: {plan_text(p)}")
                 for i, act, operands in k2r_stagings(p, prepared, cfg, x[..., None], precision, scales):
                     seg = p.segments[i]
                     out = k2.run_segment(act, p, i, *operands)
@@ -1736,7 +1851,7 @@ def phase_reduced_times(dev, card: str, size: int) -> tuple[list[dict], list[dic
             macs, modeled = pln.segment_operations(i), pln.segment_hbm_bytes(i)
             plan_bound_ms, plan_bound_by = bound(2 * macs, modeled, BF16_TC_PEAK, peak_bw)
             smem = int(k2._segment_smem_bytes(seg, pln.widths))
-            blocks, per_sm = pln.segment_blocks(i), k2.blocks_per_sm(seg, pln.widths)
+            blocks, per_sm = pln.segment_blocks(i), k2.blocks_per_sm(seg, pln.widths, pln.stage(i))
             check(per_sm == int(k2._blocks_per_sm(smem, seg.channels, pln.widths)),
                   f"K2r segment {i}: the planner's blocks an SM differ from the runtime's {per_sm}")
             row = dict(
@@ -1750,7 +1865,7 @@ def phase_reduced_times(dev, card: str, size: int) -> tuple[list[dict], list[dic
             )
             print("times K2r " + json.dumps(row))
             k2r_rows.append(row)
-        print(f"times K2r plan {precision}: modeled {pln.modeled_ms():.4f} ms; kernels "
+        print(f"times K2r plan {precision}: {plan_text(pln)}; modeled {pln.modeled_ms():.4f} ms; kernels "
               f"{sum(r['kernel_ms'] for r in k2r_rows if r['precision'] == precision):.4f} ms")
     for precision in ("fp32", "bf16", "int8w"):
         prepared = quantize.prepare_params(params, cfg, precision)
@@ -1883,7 +1998,11 @@ def phase_sharded(dev, size: int, rehearsal: bool) -> dict:
         got, counts = count_launches(dev, lambda: spatial_shard.sharded_executor_apply(
             "cuda_megakernel", params, x, cfg, precision=precision, devices=devices))
         got = got.float()
-        segs = len(k2.plan_for_config(cfg, window, precision=precision).segments)
+        whole = k2.plan_for_config(cfg, tuple(x.shape[1:4]), precision=precision)
+        part = k2.plan_for_config(cfg, window, precision=precision)
+        print(f"sharded_cuda_megakernel@{SLABS} {precision}: single-device plan {plan_text(whole)}; window plan "
+              f"{plan_text(part)}")
+        segs = len(part.segments)
         expect = {"K1": 0, "K1r": 0, "K2": 0, "K2r": 0, "K2z": SLABS * segs if cuda else 0}
         err, agree = logit_gap(got, single)
         top = float(single.abs().max())
@@ -2065,11 +2184,19 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
                 "library_ms": k4_row["library_ms"],
                 "library": "F.scaled_dot_product_attention(enable_gqa=True) with the same boolean mask",
                 "call_ms": k4_row["call_ms_cuda_events"]["kernel"],
+                "ms_pos_on_card": k4_row["kernel_pos_on_card_ms"],
+                "ms_full_cache": k4_row["full_cache"]["kernel_ms"],
+                "plain_ms_full_cache": k4_row["full_cache"]["plain_ms"],
+                "bound_ms_full_cache": k4_row["full_cache"]["bound_ms"],
+                "library_ms_full_cache": k4_row["full_cache"]["library_ms"],
                 "per": f"one call at the served shape (B {k4_row['B']}, H {k4_row['H']}, KV {k4_row['KV']}, "
-                       f"hd {k4_row['hd']}, S {k4_row['S']}, pos {k4_row['pos']}, fp32); ms, plain_ms and library_ms "
-                       "are device times per call with a cold L2 (chip_smoke.cold_ms), call_ms the CUDA-event "
+                       f"hd {k4_row['hd']}, S {k4_row['S']}, pos {k4_row['pos']}, fp32; *_full_cache at pos "
+                       f"{k4_row['full_cache']['pos']}); one launch of {k4_row['blocks']} blocks; ms, plain_ms and "
+                       "library_ms are device times per call with a cold L2 (chip_smoke.cold_ms), pos a host int "
+                       "(ms_pos_on_card: a (1,) int32 on the card), call_ms the CUDA-event "
                        "median of back-to-back calls, the host's time included; launches from "
-                       f"LMEngine serving {LM_REQUESTS} requests at {LM_ARCH} full width (22 a decode step)",
+                       f"LMEngine serving {LM_REQUESTS} requests at {LM_ARCH} full width (22 a decode step, pos on "
+                       "the card)",
             },
             {
                 "name": "dilated_conv3d_views",
@@ -2176,11 +2303,16 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true", help="tiny shapes, plain paths, CPU; never prints ok")
+    parser.add_argument("--k4-kernels", action="store_true",
+                        help="only print the kernels of one K4 call under torch.profiler, as JSON (phase 8a runs it)")
     args = parser.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.k4_kernels:
+        print(json.dumps(k4_kernels_a_call()))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cpu" if rehearsal else "cuda")

@@ -39,6 +39,13 @@ staging arrays, bf16 or int8 weights widened to fp32 in shared memory,
 fp32 accumulation, one round to bf16 after every layer, and, under int8w
 with staging scales, the first layer's taps dequantised per channel
 (``deq``) and the last layer's output quantised to int8 (``qscale``).
+Such an int8 crossing adds up to half an int8 step of error to every
+activation, so the reference's result depends on where its plan puts
+them. A plan with int8 staging therefore stages int8 at the boundaries
+the reference's plan has at that volume (``_reference_starts``, a copy of
+its VMEM planner's choice) and bf16, which the reference's segments round
+to after every layer anyway, at the others; its own boundaries are still
+priced by time, and no segment spans one of the reference's.
 K2r's first layer reads its taps from device memory and widens them in
 registers instead of staging boxes, so its layout (``_smem_layout`` at
 reduced widths) has no ring, its own register table
@@ -247,16 +254,23 @@ def _segment_smem_bytes(seg: Segment, widths: Widths = FP32_WIDTHS):
     return 4 * sum(_smem_layout(seg, widths))
 
 
-def _in_out_widths(seg: Segment, widths: Widths) -> tuple[int, int]:
+#: whether a segment's input and output staging arrays are at the plan's
+#: staging width (else at its activation width; ``MegakernelPlan.int8_at``).
+Stage = tuple[bool, bool]
+STAGED: Stage = (True, True)
+
+
+def _in_out_widths(seg: Segment, widths: Widths, stage: Stage = STAGED) -> tuple[int, int]:
     """Bytes an element of the segment's input and output staging arrays:
-    the input volume's width for the first segment, else the staging
-    width; the activation width for the fused head's logits, else the
-    staging width."""
+    the input volume's width for the first segment, else the staging width
+    where ``stage`` says so and the activation width where not; the
+    activation width for the fused head's logits, else the same rule."""
     act, _, inp, stg = widths
-    return (inp if seg.start == 0 else stg), (act if seg.fuse_head else stg)
+    return (inp if seg.start == 0 else stg if stage[0] else act), (
+        act if seg.fuse_head else stg if stage[1] else act)
 
 
-def _segment_hbm_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
+def _segment_hbm_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS, stage: Stage = STAGED):
     """Modeled device-memory bytes of one segment, the reference's formula
     (its ``_segment_hbm_bytes``) at the per-role ``widths``: per tile one
     haloed input window read at the input or staging width and the weight
@@ -267,7 +281,7 @@ def _segment_hbm_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_
     The planner's tie-break and ``MegakernelPlan.hbm_bytes`` both call
     this. Accepts numpy tiles."""
     _, wt, _, _ = widths
-    ib, ob = _in_out_widths(seg, widths)
+    ib, ob = _in_out_widths(seg, widths, stage)
     padded = tuple(_ceil_to(v, t) for v, t in zip(vol, seg.tile))
     ntiles = _prod3(tuple(p // t for p, t in zip(padded, seg.tile)))
     window = _prod3(tuple(t + 2 * seg.halo for t in seg.tile))
@@ -279,7 +293,7 @@ def _segment_hbm_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_
     return batch * data + ntiles * wgt * wt
 
 
-def _segment_device_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
+def _segment_device_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS, stage: Stage = STAGED):
     """Device-memory bytes of one segment's launch as K2 (K2r) moves them
     on Hopper: the volume read once from the input staging array, the
     written region once, each at its role's width, the parameters once
@@ -291,7 +305,7 @@ def _segment_device_bytes(seg: Segment, vol, batch: int = 1, widths: Widths = FP
     the reference's formula, ``_segment_hbm_bytes``, charges every tile
     its whole window). Accepts numpy tiles."""
     act, wt, _, _ = widths
-    ib, ob = _in_out_widths(seg, widths)
+    ib, ob = _in_out_widths(seg, widths, stage)
     padded = _prod3(tuple(-(-v // t) * t for v, t in zip(vol, seg.tile)))
     c, k = seg.channels, len(seg.dilations)
     weights = (27 * seg.cin * c + 27 * c * c * (k - 1)) * wt
@@ -370,14 +384,14 @@ def _wave_quantisation(blocks, per_sm):
     return np.ceil(waves) / waves
 
 
-def _segment_modeled_ms(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
+def _segment_modeled_ms(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS, stage: Stage = STAGED):
     """Modeled device time of one segment's launch (ms): the larger of its
     issued multiply-adds over ``FMA_PER_S`` and its device-memory bytes
     (``_segment_device_bytes``) over ``HBM_BYTES_PER_S``, times the wave
     quantisation of its blocks. The planner's DP objective. Accepts numpy
     tiles."""
     t_ops = _segment_issued_macs(seg, vol, batch, widths) / FMA_PER_S
-    t_bytes = _segment_device_bytes(seg, vol, batch, widths) / HBM_BYTES_PER_S
+    t_bytes = _segment_device_bytes(seg, vol, batch, widths, stage) / HBM_BYTES_PER_S
     per_sm = _blocks_per_sm(_segment_smem_bytes(seg, widths), seg.channels, widths)
     q = _wave_quantisation(batch * _ntiles(seg, vol), per_sm)
     return 1e3 * q * np.maximum(t_ops, t_bytes)
@@ -396,6 +410,24 @@ class MegakernelPlan:
     segments: tuple[Segment, ...]
     vol: tuple[int, int, int]  # true volume dims (pre-padding)
     widths: Widths = FP32_WIDTHS
+    #: the layers before which the plan stages at its staging width (int8
+    #: under int8w with staging scales: the reference plan's boundaries);
+    #: its other boundaries stage at the activation width. None: all do.
+    int8_at: Optional[frozenset] = None
+
+    def stage(self, i: int) -> Stage:
+        """Whether segment i's input and output staging arrays are at the
+        plan's staging width (else at its activation width)."""
+        if self.int8_at is None:
+            return STAGED
+        seg = self.segments[i]
+        return seg.start in self.int8_at, seg.start + len(seg.dilations) in self.int8_at
+
+    @property
+    def crossings(self) -> int:
+        """Segment boundaries at which the activations are staged as int8:
+        quantised by one segment and dequantised by the next."""
+        return sum(self.dtypes(i)[0] == torch.int8 for i in range(1, len(self.segments)))
 
     def padded(self, seg: Segment) -> tuple[int, int, int]:
         """Tile-multiple dims of the region this segment computes."""
@@ -417,11 +449,11 @@ class MegakernelPlan:
 
     def dtypes(self, i: int) -> tuple[torch.dtype, torch.dtype]:
         """dtypes of segment i's input and output staging arrays."""
-        return tuple(_DTYPE_OF_WIDTH[w] for w in _in_out_widths(self.segments[i], self.widths))
+        return tuple(_DTYPE_OF_WIDTH[w] for w in _in_out_widths(self.segments[i], self.widths, self.stage(i)))
 
     def segment_hbm_bytes(self, i: int, batch: int = 1) -> int:
         """Modeled device-memory bytes of segment i's launch."""
-        return _segment_hbm_bytes(self.segments[i], self.vol, batch, self.widths)
+        return _segment_hbm_bytes(self.segments[i], self.vol, batch, self.widths, self.stage(i))
 
     def segment_operations(self, i: int, batch: int = 1) -> int:
         """Multiply-adds of segment i's launch, its halo recompute included."""
@@ -452,7 +484,7 @@ class MegakernelPlan:
 
     def segment_modeled_ms(self, i: int, batch: int = 1) -> float:
         """Modeled device time of segment i's launch (ms)."""
-        return float(_segment_modeled_ms(self.segments[i], self.vol, batch, self.widths))
+        return float(_segment_modeled_ms(self.segments[i], self.vol, batch, self.widths, self.stage(i)))
 
     def modeled_ms(self, batch: int = 1) -> float:
         """Modeled device time of one forward (ms): the input's copy into
@@ -486,7 +518,9 @@ def plan(
     """Choose segment boundaries and per-axis tiles by DP over the modeled
     device time, subject to every segment's shared memory fitting
     ``smem_budget``, at ``precision``'s per-role widths (``plan_widths``;
-    ``int8_staging`` matters under int8w only). Raises ValueError naming
+    ``int8_staging`` matters under int8w only; with int8 staging, the
+    reference's boundaries stage int8 and bound the segments, the others
+    stage bf16). Raises ValueError naming
     the layer that cannot fit, even alone. Memoised per (model, volume,
     budget, precision, staging, batch): the serving path plans the same
     request for the byte model and for the forward."""
@@ -531,14 +565,17 @@ def plan_for_config(
     )
 
 
-def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, widths: Widths = FP32_WIDTHS):
+def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, widths: Widths = FP32_WIDTHS,
+        cuts: Optional[frozenset] = None):
     """(least modeled ms, segments) over every split of the schedule into
     segments and every tile of each. A segment's time does not depend on
     the other segments, so best[i], the least time of layers i.., is the
     minimum over j of segment (i, j)'s fastest fitting tile plus best[j];
     each segment's time and shared memory are evaluated over the whole
     tile grid at once. Among tiles of equal time the one with the fewest
-    modeled bytes wins."""
+    modeled bytes wins. With ``cuts`` (layers), no segment spans one, and a
+    boundary stages at the staging width there and at the activation
+    width elsewhere (``MegakernelPlan.int8_at``)."""
     n = len(dils)
     grids = tuple(np.meshgrid(*[np.array(_axis_candidates(v), np.int64) for v in vol], indexing="ij"))
     inf = float("inf")
@@ -558,8 +595,11 @@ def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, width
 
     for i in range(n - 1, -1, -1):
         for j in range(i + 1, min(n, i + MAX_LAYERS) + 1):
+            if cuts is not None and j - 1 in cuts and j - 1 > i:
+                break  # segment (i, j) would span the cut at j - 1
             seg = seg_for(i, j, grids)
-            ms = _segment_modeled_ms(seg, vol, batch, widths)
+            stage = STAGED if cuts is None else (i in cuts, j in cuts)
+            ms = _segment_modeled_ms(seg, vol, batch, widths, stage)
             if i == 0:
                 ms = ms + _input_pad_ms(seg, vol, batch, widths)
             cost = np.where(_segment_smem_bytes(seg, widths) <= smem_budget, ms, inf).reshape(-1)
@@ -567,7 +607,7 @@ def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, width
             if least == inf:
                 continue
             ties = np.flatnonzero(cost <= least * (1 + 1e-12))
-            hbm = np.broadcast_to(_segment_hbm_bytes(seg, vol, batch, widths), grids[0].shape).reshape(-1)
+            hbm = np.broadcast_to(_segment_hbm_bytes(seg, vol, batch, widths, stage), grids[0].shape).reshape(-1)
             flat = int(ties[np.argmin(hbm[ties])])
             c = float(cost[flat]) + best[j]
             if c < best[i]:
@@ -587,7 +627,10 @@ def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, width
 def _plan_cached(dils, in_channels, channels, num_classes, vol, smem_budget, precision, int8_staging,
                  batch) -> MegakernelPlan:
     widths = plan_widths(precision, int8_staging)
-    _, segments = _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, widths)
+    cuts = None
+    if widths[3] == 1:  # int8 staging: at the reference's boundaries only
+        cuts = frozenset(_reference_starts(dils, in_channels, channels, num_classes, vol)[1:])
+    _, segments = _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, widths, cuts)
     if segments is None:
         # Every layer alone is a valid segment, and a one-layer segment
         # holds only its parameters on chip, whatever its tile: so some
@@ -606,7 +649,74 @@ def _plan_cached(dils, in_channels, channels, num_classes, vol, smem_budget, pre
             f"of shared memory, over the {smem_budget}-byte budget; reduce the channel "
             f"width or raise smem_budget"
         )
-    return MegakernelPlan(segments=segments, vol=vol, widths=widths)
+    return MegakernelPlan(segments=segments, vol=vol, widths=widths, int8_at=cuts)
+
+
+#: the reference's planning budget (16 MiB of TPU VMEM a core less its
+#: compiler's headroom) and its tile candidates: what ``_reference_starts``
+#: plans with.
+REFERENCE_VMEM_BUDGET = 14 * 1024 * 1024
+REFERENCE_TILE_CANDIDATES = (8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 128, 160, 192, 256)
+
+
+@functools.lru_cache(maxsize=256)
+def _reference_starts(dils, in_channels, channels, num_classes, vol) -> tuple[int, ...]:
+    """The first layer of every segment of the reference's int8w plan with
+    int8 staging (``repro/kernels/megakernel.py::_plan_cached`` at widths
+    (2, 1, 1, 1), batch 1 and ``REFERENCE_VMEM_BUDGET``, as its forward
+    plans): the DP over modeled HBM bytes subject to each segment's VMEM
+    working set, copied term for term, so that ties break as there. Its
+    boundaries are where the reference stages int8."""
+    n = len(dils)
+    act, wt, inp, stg = 2, 1, 1, 1
+    cands = [np.array([t for t in REFERENCE_TILE_CANDIDATES if t <= _ceil_to(v, 8)] or [8], dtype=np.float64)
+             for v in vol]
+    grids = np.meshgrid(*cands, indexing="ij")
+    inf = float("inf")
+    best = [inf] * n + [0.0]
+    nxt = [n] * n
+    for i in range(n - 1, -1, -1):
+        cin = in_channels if i == 0 else channels
+        ib = inp if i == 0 else stg
+        for j in range(i + 1, n + 1):
+            d_ij, k, fuse_head = dils[i:j], j - i, j == n
+            h = sum(d_ij)
+            cout = num_classes if fuse_head else channels
+            ob = act if fuse_head else stg
+            cum, prods = 0, []
+            for layer in range(k + 1):
+                s = 2 * (h - cum)
+                prods.append((grids[0] + s) * (grids[1] + s) * (grids[2] + s))
+                if layer < k:
+                    cum += d_ij[layer]
+            wgt = 27 * cin * channels * wt + 27 * channels**2 * wt * (k - 1)
+            wgt_h = wgt + (channels * num_classes * wt if fuse_head else 0)
+            ping = np.maximum.reduce(prods[1::2]) * (channels * act)
+            pong = np.maximum.reduce(prods[2::2]) * (channels * act) if k >= 2 else 0.0
+            acc = np.maximum.reduce(prods[1:]) * (channels * 4)
+            logits = prods[k] * (num_classes * act) if fuse_head else 0.0
+            if fuse_head:
+                acc = np.maximum(acc, prods[k] * (num_classes * 4))
+            qout = prods[k] * (channels * stg) if (not fuse_head and stg < act) else 0.0
+            vmem = prods[0] * (cin * ib) + ping + pong + wgt + logits + qout + acc
+            padded = [np.ceil(v / g) * g for v, g in zip(vol, grids)]
+            ntiles = (padded[0] / grids[0]) * (padded[1] / grids[1]) * (padded[2] / grids[2])
+            cost = ntiles * (prods[0] * (cin * ib)) + ntiles * wgt_h
+            cost += padded[0] * padded[1] * padded[2] * (cout * ob)
+            if i == 0:
+                cost += math.prod(vol) * (cin * inp)
+                cost += ((padded[0] + 2 * h) * (padded[1] + 2 * h) * (padded[2] + 2 * h)) * (cin * inp)
+            cost = np.where(vmem <= REFERENCE_VMEM_BUDGET, cost, inf)
+            c = float(cost.reshape(-1)[int(np.argmin(cost))]) + best[j]
+            if c < best[i]:
+                best[i], nxt[i] = c, j
+    if best[0] == inf:
+        raise ValueError(f"the reference plans no segment of layer 0 within {REFERENCE_VMEM_BUDGET} bytes of VMEM")
+    starts, i = [], 0
+    while i < n:
+        starts.append(i)
+        i = nxt[i]
+    return tuple(starts)
 
 
 # ------------------------------------------------------------- K2, K2r ---
@@ -705,14 +815,15 @@ def _check_operands(x, pln: MegakernelPlan, i: int, layers, head, deq=None, qsca
         raise TypeError("the head's w must be bfloat16 and its b float32 at a reduced policy")
 
 
-def blocks_per_sm(seg: Segment, widths: Widths = FP32_WIDTHS) -> int:
+def blocks_per_sm(seg: Segment, widths: Widths = FP32_WIDTHS, stage: Stage = STAGED) -> int:
     """Blocks of ``seg`` one SM holds, from the built K2 (K2r at reduced
-    ``widths``; the runtime's occupancy calculator), against which
-    ``_blocks_per_sm`` models it. On the card only."""
+    ``widths``, its input staging array as ``stage`` says; the runtime's
+    occupancy calculator), against which ``_blocks_per_sm`` models it. On
+    the card only."""
     smem = int(_segment_smem_bytes(seg, widths))
     if widths == FP32_WIDTHS:
         return int(_kernel().repro_megakernel_blocks_per_sm(seg.channels, seg.cin, smem))
-    x_int8 = _in_out_widths(seg, widths)[0] == 1
+    x_int8 = _in_out_widths(seg, widths, stage)[0] == 1
     return int(_kernel_lp().repro_megakernel_lp_blocks_per_sm(seg.channels, int(x_int8), smem))
 
 

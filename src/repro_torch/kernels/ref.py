@@ -169,12 +169,14 @@ def dice_counts(pred: torch.Tensor, truth: torch.Tensor, num_classes: int) -> to
     return torch.stack(rows).to(torch.int32)
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int) -> torch.Tensor:
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos) -> torch.Tensor:
     """Single-token GQA decode attention over a KV cache (counterpart of
     ``repro/kernels/ref.py::decode_attention``): q (B, 1, H, hd), k/v
     (B, S, KV, hd), attends to slots [0, pos]; the KV heads repeated to H,
     scores in fp32 over sqrt(hd), slots after ``pos`` masked with -1e30,
-    softmax, the PV product in fp32; returns (B, 1, H, hd) in q's dtype."""
+    softmax, the PV product in fp32; returns (B, 1, H, hd) in q's dtype.
+    ``pos`` is a host int or a (1,) integer tensor on k's device, compared
+    there (the reference kernel's operand)."""
     B, _, H, hd = q.shape
     KV = k.shape[2]
     kk = torch.repeat_interleave(k, H // KV, dim=2).float()

@@ -198,6 +198,7 @@ def attention_decode(
     pos: int,
     *,
     rope: bool = True,
+    pos_dev: Optional[torch.Tensor] = None,
 ):
     """One-token decode against a (B, S, KV, hd) cache.
 
@@ -205,8 +206,10 @@ def attention_decode(
     ``pos % S``, in place — plain append for full attention (S = max seq),
     ring-buffer overwrite for sliding-window caches (S = window), where
     every resident slot is valid once pos >= S. Then K4 attends to slots
-    [0, min(pos, S - 1)] (the reference's mask). Returns (out, cache_k,
-    cache_v), the caches the same tensors as given."""
+    [0, min(pos, S - 1)] (the reference's mask): K4 takes ``pos_dev``, the
+    same position as a (1,) int32 tensor on x's device, when it is given
+    (K4 clamps it to S - 1 itself), else the host int. Returns (out,
+    cache_k, cache_v), the caches the same tensors as given."""
     if cfg.kv_quant:
         raise ValueError(f"the int8 KV cache (kv_quant) is {NOT_PORTED}")
     B = x.shape[0]
@@ -217,7 +220,7 @@ def attention_decode(
     slot = pos % S
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    out = k4.decode_attention(q.to(cache_k.dtype), cache_k, cache_v, min(pos, S - 1))
+    out = k4.decode_attention(q.to(cache_k.dtype), cache_k, cache_v, min(pos, S - 1) if pos_dev is None else pos_dev)
     out = out.to(x.dtype).reshape(B, 1, -1) @ p["wo"]
     return out, cache_k, cache_v
 

@@ -166,9 +166,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     )
 
 
-def _decode_block(bp, kind, x, state, pos: int, cfg: ModelConfig):
+def _decode_block(bp, kind, x, state, pos: int, cfg: ModelConfig, pos_dev: torch.Tensor):
     h = L.apply_norm(bp["ln1"], x, cfg.norm_eps)
-    out, _, _ = L.attention_decode(bp["attn"], h, cfg, state["k"], state["v"], pos)
+    out, _, _ = L.attention_decode(bp["attn"], h, cfg, state["k"], state["v"], pos, pos_dev=pos_dev)
     x, _ = _apply_mlp_part(bp, x + out, cfg)
     return x, state
 
@@ -176,12 +176,15 @@ def _decode_block(bp, kind, x, state, pos: int, cfg: ModelConfig):
 def decode_step(params, token: torch.Tensor, cache, pos: int, cfg: ModelConfig):
     """One decode step. token: (B, 1) int; pos: the current sequence
     position (a host int). Writes the step's K/V into ``cache`` in place.
+    The position goes to every layer's K4 as one (1,) int32 tensor on the
+    token's device, filled once a step (a fill, not a copy from the host).
     Returns (logits (B, 1, V), cache)."""
     check_supported(cfg)
     pos = int(pos)
     x = _embed(params, token, cfg)
+    pos_dev = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     for r in range(cfg.num_repeats):
         for pi, kind in enumerate(cfg.block_pattern()):
-            x, _ = _decode_block(_layer(params["blocks"][pi], r), kind, x, _layer(cache[pi], r), pos, cfg)
+            x, _ = _decode_block(_layer(params["blocks"][pi], r), kind, x, _layer(cache[pi], r), pos, cfg, pos_dev)
     x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x, cfg), cache

@@ -1,8 +1,9 @@
 """K4's wrapper on the CPU (its plain version) against the reference:
 ``repro.kernels.ref.decode_attention`` on the reference's four kernel
 cases (2e-5) and its bf16 case (3e-2, tests/test_kernels.py), the Pallas
-K4 in interpret mode on one small case, and how the wrapper cuts the
-cache into chunks for the card."""
+K4 in interpret mode on one small case, ``pos`` as a host int and as a
+(1,) int32 tensor alike, and the kernel's chunk rule (its Python mirror):
+how the card's fixed grid cuts the valid slots among blocks and warps."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,14 +51,27 @@ def test_bf16_matches_reference_oracle():
     np.testing.assert_allclose(got.float().numpy(), np.asarray(expect, np.float32), rtol=0, atol=BF16_ATOL)
 
 
+@pytest.mark.parametrize("B,H,KV,hd,S,pos", CASES)
+def test_tensor_pos_is_the_host_int(B, H, KV, hd, S, pos):
+    """pos as a (1,) int32 tensor, the reference's operand, gives the host
+    int's result, bit for bit, and the reference oracle's."""
+    q, k, v = (torch.tensor(a) for a in _qkv(B + S, B, H, KV, hd, S))
+    got = k4.decode_attention(q, k, v, torch.full((1,), pos, dtype=torch.int32))
+    assert torch.equal(got, k4.decode_attention(q, k, v, pos))
+    expect = ref_kernels.decode_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()), pos)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=0, atol=FP32_ATOL)
+
+
 def test_plain_version_matches_pallas_kernel():
     """One small case against the Pallas K4 in interpret mode, its S cut
-    into three blocks of 32 (the last ragged)."""
+    into three blocks of 32 (the last ragged), pos as a host int and as a
+    (1,) int32 tensor."""
     q, k, v = _qkv(11, 2, 8, 2, 32, 70)
     expect = pallas_decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(45, jnp.int32),
                                      block_s=32)
-    got = ref.decode_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), 45)
-    np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=0, atol=FP32_ATOL)
+    for pos in (45, torch.tensor([45], dtype=torch.int32)):
+        got = ref.decode_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), pos)
+        np.testing.assert_allclose(got.numpy(), np.asarray(expect), rtol=0, atol=FP32_ATOL)
 
 
 def test_pos_past_the_cache_attends_to_every_slot():
@@ -65,12 +79,23 @@ def test_pos_past_the_cache_attends_to_every_slot():
     np.testing.assert_array_equal(k4.decode_attention(q, k, v, 25).numpy(), k4.decode_attention(q, k, v, 9).numpy())
 
 
-@pytest.mark.parametrize("n_valid,rows", [(1, 16), (57, 4), (64, 16), (290, 16), (1024, 16), (1024, 1), (5000, 64)])
-def test_split_cuts_the_valid_slots_into_non_empty_chunks(n_valid, rows):
-    nsplit, chunk = k4.split(n_valid, rows)
-    assert 1 <= nsplit and (nsplit - 1) * chunk < n_valid <= nsplit * chunk  # none empty, all covered
-    assert nsplit == 1 or chunk >= k4.MIN_CHUNK // 2
-    assert nsplit * rows <= max(k4.TARGET_BLOCKS + rows, rows)
+@pytest.mark.parametrize("S,rows", [(1, 16), (57, 4), (64, 16), (290, 16), (1024, 16), (1024, 1), (2048, 64)])
+def test_chunks_cover_the_valid_slots_once(S, rows):
+    """The grid depends on S and B x KV alone (at most TARGET_BLOCKS blocks
+    or one a row, no more chunks than a full cache has MIN_SLOTS slots); at
+    every pos the (block, warp) chunks of the kernel's rule
+    take every valid slot exactly once, none past n_valid, each within one
+    slot of an even share."""
+    splits = k4.nsplit(S, rows)
+    assert 1 <= splits and splits * rows <= max(k4.TARGET_BLOCKS, rows)
+    assert splits <= -(-S // k4.MIN_SLOTS)
+    workers = splits * k4.WARPS
+    for pos in range(S + 2):
+        n_valid = min(pos + 1, S)
+        cs = k4.chunks(n_valid, splits)
+        assert len(cs) == workers
+        assert [b for b, _ in cs] == [0] + [e for _, e in cs[:-1]] and cs[-1][1] == n_valid
+        assert all(n_valid // workers - 1 <= e - b <= -(-n_valid // workers) + 1 for b, e in cs)
 
 
 def test_wrapper_rejects_bad_shapes():
@@ -82,3 +107,6 @@ def test_wrapper_rejects_bad_shapes():
         k4.decode_attention(q, k[:, :, :, :8], v, 3)
     with pytest.raises(ValueError, match="pos"):
         k4.decode_attention(q, k, v, -1)
+    for pos in (torch.tensor([3]), torch.tensor(3, dtype=torch.int32), torch.tensor([3, 4], dtype=torch.int32)):
+        with pytest.raises(ValueError, match="int32"):
+            k4.decode_attention(q, k, v, pos)

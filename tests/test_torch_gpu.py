@@ -376,6 +376,103 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
             assert float((g.cpu() - cpu_layer[name]).abs().max()) <= 1e-4 * gnorm, (i, name)
 
 
+K4_CASES = [
+    (2, 8, 2, 32, 100, 57, torch.float32),  # the reference's four kernel cases
+    (1, 4, 4, 16, 64, 63, torch.float32),
+    (3, 16, 8, 64, 200, 10, torch.float32),
+    (1, 8, 1, 32, 96, 95, torch.float32),
+    (2, 8, 4, 32, 80, 40, torch.bfloat16),  # and its bf16 case
+    *[(4, 32, 4, 64, 1024, pos, torch.float32) for pos in (0, 1, 511, 512, 1023, 5000)],  # TinyLlama
+    (4, 32, 4, 64, 1024, 700, torch.bfloat16),
+    (2, 16, 16, 128, 300, 299, torch.float32),  # MHA, hd 128
+    (1, 16, 16, 256, 90, 80, torch.float32),  # gemma's hd 256: dynamic shared memory
+]
+
+
+def _k4_inputs(seed, B, H, KV, hd, S, dtype, device):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(device, dtype) for s in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def _k4_tol(dtype):
+    return 2e-5 if dtype == torch.float32 else 3e-2  # tests/test_kernels.py
+
+
+@pytest.mark.parametrize("B,H,KV,hd,S,pos,dtype", K4_CASES)
+def test_decode_attention_with_pos_on_the_card(cuda, B, H, KV, hd, S, pos, dtype):
+    """pos as a (1,) int32 tensor on the card, read by the kernel: the plain
+    version's result, and the host int's bit for bit (one launch each)."""
+    q, k, v = _k4_inputs(B * S + pos, B, H, KV, hd, S, dtype, cuda)
+    pos_dev = torch.full((1,), pos, dtype=torch.int32, device=cuda)
+    before = k4.launches
+    got = k4.decode_attention(q, k, v, pos_dev)
+    host = k4.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 2 and got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, host)
+    assert float((got.float() - ref.decode_attention(q, k, v, pos).float()).abs().max()) <= _k4_tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_replays_in_a_cuda_graph(cuda, dtype):
+    """One capture at TinyLlama's served shape, replayed at 4 positions
+    written into the same pos tensor (across the chunk boundaries and past
+    the cache): each replay is the plain version's result at that pos."""
+    q, k, v = _k4_inputs(21, 4, 32, 4, 64, 1024, dtype, cuda)
+    pos_dev = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: builds the kernel and makes the workspace
+        k4.decode_attention(q, k, v, pos_dev)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k4.decode_attention(q, k, v, pos_dev)
+    for pos in (0, 255, 700, 1023, 1500):
+        pos_dev.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.decode_attention(q, k, v, pos).float()).abs().max())
+        assert err <= _k4_tol(dtype), (pos, err)
+
+
+def test_decode_attention_is_one_kernel_a_call(cuda):
+    """torch.profiler sees exactly one CUDA kernel for each K4 call, with a
+    host pos and with a pos on the card, at a split and an unsplit shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = [(4, 32, 4, 64, 1024, 255), (1, 8, 1, 32, 16, 9)]
+    inputs = [(_k4_inputs(22, *c[:5], torch.float32, cuda), c[5]) for c in cases]
+    for (q, k, v), pos in inputs:  # warm-up outside the profile: build and workspace
+        k4.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    for (q, k, v), pos in inputs:
+        pos_dev = torch.full((1,), pos, dtype=torch.int32, device=cuda)
+        torch.cuda.synchronize()
+        for p in (pos, pos_dev):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                k4.decode_attention(q, k, v, p)
+                torch.cuda.synchronize()
+            on_card = {e.key: e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+            assert len(on_card) == 1 and sum(on_card.values()) == 1 and "decode_attn" in next(iter(on_card)), on_card
+
+
+def test_decode_attention_reuses_its_workspace(cuda):
+    """Two calls back to back on one stream, no synchronise between them, at
+    two positions: they share the workspace and counters, and each is the
+    plain version's result; the counters are back at 0."""
+    q, k, v = _k4_inputs(23, 4, 32, 4, 64, 1024, torch.float32, cuda)
+    a = k4.decode_attention(q, k, v, 1023)
+    n = len(k4._WORKSPACES)
+    b = k4.decode_attention(q, k, v, torch.full((1,), 100, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert len(k4._WORKSPACES) == n
+    assert float((a - ref.decode_attention(q, k, v, 1023)).abs().max()) <= 2e-5
+    assert float((b - ref.decode_attention(q, k, v, 100)).abs().max()) <= 2e-5
+    counts = k4._WORKSPACES[(q.device, 4, 4, k4.nsplit(1024, 16), 8, 64)][1]
+    assert int(counts.abs().sum()) == 0
+
+
 @pytest.mark.parametrize(
     "B,H,KV,hd,S,pos,dtype",
     [

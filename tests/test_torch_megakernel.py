@@ -30,6 +30,24 @@ FULL_SCHEDULE = (1, 2, 4, 8, 16, 8, 4, 2, 1)
 MEGA_ATOL = 1e-4  # megakernel logits (tests/test_megakernel.py)
 SEGMENT_ATOL = 1e-5  # one segment, the same arithmetic in another order
 PAPER_VOL = (256, 256, 256)
+#: the tiles of the one-layer segments that the time-only planner chose at
+#: fp32 and bf16 (one list when both policies chose the same), by (model,
+#: volume, batch); "small" is gwm_light at dilations (1, 2, 4).
+_T16 = (16, 16, 256)
+PARENT_PLANS = {
+    ("gwm_light", PAPER_VOL, 1): {"fp32": [(3, 4, 256)] + [_T16] * 3 + [(8, 32, 256)] + [_T16] * 4,
+                                  "bf16": [_T16] * 4 + [(8, 32, 256)] + [_T16] * 4},
+    ("gwm_large", PAPER_VOL, 1): [(2, 4, 128), (6, 4, 128), (3, 8, 128)] + [(16, 32, 128)] * 3 + [
+        (3, 8, 128), (6, 4, 128), (4, 6, 128)],
+    ("gwm_light", (156, 256, 256), 1): [(2, 4, 256)] * 2 + [(10, 16, 256)] * 2 + [(5, 32, 256)] + [
+        (10, 16, 256)] * 2 + [(2, 4, 256)] * 2,
+    ("gwm_light", (10, 12, 14), 1): [(2, 4, 14)] * 2 + [(2, 2, 14)] * 5 + [(2, 4, 14)] * 2,
+    ("gwm_light", (9, 17, 13), 2): [(3, 2, 14), (2, 4, 14)] + [(2, 2, 14)] * 5 + [(2, 4, 14), (3, 2, 14)],
+    ("gwm_light", (16, 8, 8), 1): [(2, 4, 8)] * 2 + [(2, 2, 8)] * 5 + [(2, 4, 8)] * 2,
+    ("small", (16, 8, 8), 1): [(2, 4, 8), (2, 4, 8), (2, 2, 8)],
+    ("small", (30, 8, 8), 1): [(2, 4, 8), (2, 4, 8), (2, 2, 8)],
+    ("small", (10, 12, 14), 1): [(2, 4, 14), (2, 4, 14), (2, 2, 14)],
+}
 
 
 def _np_params(cfg, seed):
@@ -283,6 +301,47 @@ class TestPlanner:
         # with BatchNorm, int8w stages int8 unless told otherwise
         assert plans[("int8w", True)] is mk.plan_for_config(cfg, PAPER_VOL, precision="int8w")
         assert [p.widths for p in plans.values()] == [(4, 4, 4, 4), (2, 2, 2, 2), (2, 1, 1, 1), (2, 1, 1, 2)]
+
+    @pytest.mark.parametrize("precision", ["fp32", "bf16"])
+    @pytest.mark.parametrize("case", sorted(PARENT_PLANS), ids=lambda c: "-".join(map(str, c)).replace(" ", ""))
+    def test_fp32_and_bf16_plans_are_the_time_priced_ones(self, case, precision):
+        """Only int8 staging changes the objective: at fp32 and bf16 the plan
+        is the one the time-only DP made before, segment for segment and
+        tile for tile (written down from that planner), with no crossing."""
+        name, vol, batch = case
+        cfg = meshnet.MeshNetConfig(channels=5, num_classes=3, dilations=(1, 2, 4)) if name == "small" else (
+            meshnet.PAPER_MODELS[name])
+        pln = mk.plan_for_config(cfg, vol, precision=precision, batch=batch)
+        want = PARENT_PLANS[case][precision] if isinstance(PARENT_PLANS[case], dict) else PARENT_PLANS[case]
+        assert [(s.start, len(s.dilations), s.tile) for s in pln.segments] == [
+            (i, 1, tuple(t)) for i, t in enumerate(want)]
+        assert pln.crossings == 0
+
+    @pytest.mark.parametrize("name,vol", [("gwm_light", PAPER_VOL), ("brain_mask_fast", PAPER_VOL),
+                                          ("gwm_light", (156, 256, 256)), ("gwm_light", ODD_SHAPE[1:]),
+                                          ("atlas_104", (16, 8, 8)), ("gwm_light", (16, 8, 8))])
+    def test_int8_staging_stages_where_the_references_plan_does(self, name, vol):
+        """Under int8w with int8 staging the plan stages int8 exactly at the
+        boundaries of the reference's own plan at that volume (the copy of
+        its VMEM planner, ``_reference_starts``, agrees with it), no segment
+        spans one, every other boundary stages bf16, and ``crossings``
+        counts the int8 ones; with bf16 staging there is none."""
+        ref_plan = ref_mk.plan_for_config(ref_meshnet.PAPER_MODELS[name], vol, precision="int8w")
+        cuts = {seg.start for seg in ref_plan.segments[1:]}
+        cfg = meshnet.PAPER_MODELS[name]
+        pln = mk.plan_for_config(cfg, vol, precision="int8w")
+        assert pln.widths == (2, 1, 1, 1) and pln.int8_at == cuts and pln.crossings == len(cuts) > 0
+        starts = [seg.start for seg in pln.segments]
+        assert cuts <= set(starts)
+        for i, seg in enumerate(pln.segments):
+            want = torch.int8 if i == 0 or seg.start in cuts else torch.bfloat16
+            assert pln.dtypes(i)[0] == want
+        # time-priced within the cuts: the bf16-staged plan where it has the same boundaries
+        staged16 = mk.plan_for_config(cfg, vol, precision="int8w", int8_staging=False)
+        assert staged16.crossings == 0
+        if cuts <= {seg.start for seg in staged16.segments}:
+            same_cuts = dataclasses.replace(staged16, widths=pln.widths, int8_at=cuts)
+            assert pln.modeled_ms() <= same_cuts.modeled_ms() * (1 + 1e-12)
 
 
 class TestParity:

@@ -7,7 +7,7 @@ reference on the CPU, on inputs made with numpy:
   another order) and bit-equal from the same activations,
   ``quantize_staging``'s codes equal;
 - the planner's per-role widths, K2r's shared-memory layout, and the DP at
-  reduced widths;
+  reduced widths (int8 staging only at the reference plan's boundaries);
 - the plain version segment by segment against the reference's Pallas
   ``_run_segment`` in interpret mode on a forced 3-segment plan, the
   reference's staging arrays feeding both: int8 codes within +-1 and equal
@@ -19,9 +19,11 @@ reference on the CPU, on inputs made with numpy:
   reference's ``xla`` bf16 oracle (one bf16 step of the largest logit
   where logits pass 0.25) and 1e-2 of fp32; int8w within 2e-2 of the oracle on a plan with no staging (the
   reference's own plan at this shape is one segment) and within 8e-2, argmax
-  agreeing with fp32 on >= 95 % of voxels, where int8 staging runs: the
-  port's own plan (a segment a layer, so int8 after every layer) and a
-  forced plan of multi-layer segments; no BatchNorm within 2e-2 and 3e-2
+  agreeing with fp32 on >= 95 % of voxels, where forced plans stage int8 at
+  every boundary (a segment a layer; multi-layer segments); gwm_light's own
+  int8w plan at 32^3, int8 at the reference plan's two boundaries (those
+  of 256^3), within 2e-2 of the reference's ``pallas_megakernel`` (fault
+  F2); no BatchNorm within 2e-2 and 3e-2
   of fp32 at bf16; calibrated scales no worse than the BatchNorm bound.
 """
 
@@ -218,37 +220,56 @@ def test_reduced_plans_price_their_widths(precision, staging):
     for vol, budget in (((256,) * 3, mk.SMEM_BUDGET), (VOL, 20_000)):
         pln = mk.plan_for_config(cfg, vol, smem_budget=budget, precision=precision, int8_staging=staging)
         assert pln.widths == widths
+        # int8 staging: int8 at the reference plan's boundaries, bf16 at the others
+        assert (pln.int8_at is not None) == (widths[3] == 1)
+        dtype = {4: torch.float32, 2: torch.bfloat16, 1: torch.int8}
         for i, seg in enumerate(pln.segments):
             assert mk._segment_smem_bytes(seg, widths) <= budget
             x_dtype, out_dtype = pln.dtypes(i)
-            assert x_dtype == {4: torch.float32, 2: torch.bfloat16, 1: torch.int8}[widths[2] if i == 0 else widths[3]]
-            assert out_dtype == (torch.bfloat16 if seg.fuse_head else x_dtype if i else
-                                 {2: torch.bfloat16, 1: torch.int8}[widths[3]])
+            stage_in, stage_out = pln.stage(i)
+            assert x_dtype == dtype[widths[2] if i == 0 else widths[3] if stage_in else widths[0]]
+            assert out_dtype == (torch.bfloat16 if seg.fuse_head else dtype[widths[3] if stage_out else widths[0]])
+            assert i == 0 or stage_in == pln.stage(i - 1)[1]
         assert pln.modeled_ms() == pytest.approx(
             float(mk._input_pad_ms(pln.segments[0], vol, 1, widths))
             + sum(pln.segment_modeled_ms(i) for i in range(len(pln.segments))))
 
 
-def test_reduced_dp_is_the_minimum_of_an_exhaustive_search():
+@pytest.mark.parametrize("int8_staging", [True, False])
+def test_reduced_dp_is_the_minimum_of_an_exhaustive_search(int8_staging):
+    """Over every split and tile, the least modeled time. With int8 staging
+    the splits are those that cut where the reference's plan does (forced
+    here to layer 2; its own plan at this shape is one segment, so the
+    planner's has no cut), each boundary priced at its own width: int8 at
+    the cut, bf16 at the others."""
     cfg = meshnet.MeshNetConfig(dilations=(1, 2, 4))
-    widths = mk.plan_widths("int8w", True)
+    widths = mk.plan_widths("int8w", int8_staging)
     n, budget = 3, 30_000
+    cut = frozenset({2}) if int8_staging else None
     tiles = list(itertools.product(*[mk._axis_candidates(v) for v in VOL]))
     best = float("inf")
     for cuts in itertools.chain.from_iterable(itertools.combinations(range(1, n), r) for r in range(n)):
+        if cut is not None and not cut <= set(cuts):
+            continue
         bounds = (0,) + cuts + (n,)
         total = 0
         for i, j in zip(bounds, bounds[1:]):
+            stage = mk.STAGED if cut is None else (i in cut, j in cut)
             costs = []
             for tile in tiles:
                 seg = mk.Segment(i, cfg.dilations[i:j], 1 if i == 0 else 5, 5, tile, j == n, 3)
                 if mk._segment_smem_bytes(seg, widths) <= budget:
-                    c = float(mk._segment_modeled_ms(seg, VOL, 1, widths))
+                    c = float(mk._segment_modeled_ms(seg, VOL, 1, widths, stage))
                     costs.append(c + (float(mk._input_pad_ms(seg, VOL, 1, widths)) if i == 0 else 0.0))
             total += min(costs, default=float("inf"))
         best = min(best, total)
-    pln = mk.plan_for_config(cfg, VOL, smem_budget=budget, precision="int8w")
+    _, segments = mk._dp(cfg.dilations, 1, 5, 3, VOL, budget, 1, widths, cut)
+    pln = mk.MegakernelPlan(segments, VOL, widths, cut)
     assert pln.modeled_ms() == pytest.approx(best, rel=1e-12)
+    assert pln.crossings == (1 if int8_staging else 0)
+    own = mk.plan_for_config(cfg, VOL, smem_budget=budget, precision="int8w", int8_staging=int8_staging)
+    assert own.crossings == 0 and own.int8_at == (frozenset() if int8_staging else None)
+    assert own.modeled_ms() <= pln.modeled_ms() * (1 + 1e-12)
 
 
 # ----------------------------------------- K2r's plain version, segments ---
@@ -430,15 +451,49 @@ def test_int8w_forward_holds_the_references_gates():
     assert np.max(np.abs(_f32(got) - oracle)) <= 2e-2
     # an int8 input is taken as already quantised
     assert torch.equal(got, ops.meshnet_apply_megakernel(params, quantize.quantize_input(xt), cfg, pln=one, precision="int8w"))
-    # int8 staging (tests/test_precision.py:114-135): the port's own plan,
-    # a segment a layer, and a forced plan of a two-layer segment and one
+    # the port's own plan at this shape is one segment too: no crossing
+    own = mk.plan_for_config(cfg, VOL, precision="int8w")
+    assert own.widths == widths and own.crossings == 0
+    got = ops.meshnet_apply_megakernel(params, xt, cfg, pln=own, precision="int8w")
+    assert np.max(np.abs(_f32(got) - oracle)) <= 2e-2
+    # int8 staging (tests/test_precision.py:114-135): forced plans of a
+    # segment a layer and of a two-layer segment and one, int8 at every
+    # boundary
+    one_each = mk.plan_for_config(cfg, VOL, precision="int8w", int8_staging=False).segments
     forced = mk.MegakernelPlan((mk.Segment(0, (1, 2), 1, 5, (5, 6, 14)), mk.Segment(2, (4,), 5, 5, VOL, True, 3)),
                                VOL, widths)
-    for pln in (mk.plan_for_config(cfg, VOL, precision="int8w"), forced):
-        assert len(pln.segments) >= 2 and pln.widths == widths
+    for pln in (mk.MegakernelPlan(one_each, VOL, widths), forced):
+        assert pln.crossings >= 1 and pln.widths == widths
         got = ops.meshnet_apply_megakernel(params, xt, cfg, pln=pln, precision="int8w")
         assert np.max(np.abs(_f32(got) - oracle)) <= 8e-2
         assert np.mean(_f32(got).argmax(-1) == fp32.argmax(-1)) >= 0.95
+
+
+def test_int8w_forward_stages_where_the_reference_does():
+    """Fault F2's case with int8 crossings: gwm_light's 9 layers at 32^3,
+    where the reference's plan is layers 0-3, 4 and 5-8, as at 256^3, so
+    it stages int8 before layers 4 and 5. The port's own int8w plan (int8
+    at those two boundaries, bf16 at the others, as at 256^3) is within
+    the reference's 2e-2 (tests/test_precision.py:266) of the reference's
+    ``pallas_megakernel`` at int8w (interpret mode); the same segments
+    staging int8 at every boundary, as the port's first planner did, are
+    not."""
+    ref_cfg = ref_meshnet.PAPER_MODELS["gwm_light"]
+    vol = (32, 32, 32)
+    tree = _np_params(ref_cfg, 7)
+    x = _volume(vol, 107)
+    cfg = _port_cfg(ref_cfg)
+    pln = mk.plan_for_config(cfg, vol, precision="int8w")
+    assert pln.int8_at == {4, 5} == mk.plan_for_config(cfg, (256,) * 3, precision="int8w").int8_at
+    params, xt = bridge.params_from_numpy(tree, "cpu"), torch.from_numpy(x)
+    want = _f32(ref_executors.apply("pallas_megakernel", jax.tree.map(jnp.asarray, tree), jnp.asarray(x), ref_cfg,
+                                    precision="int8w"))
+    got = _f32(ops.meshnet_apply_megakernel(params, xt, cfg, precision="int8w"))
+    assert np.max(np.abs(got - want)) <= 2e-2
+    every = mk.MegakernelPlan(pln.segments, vol, pln.widths)
+    assert every.crossings == 8
+    got = _f32(ops.meshnet_apply_megakernel(params, xt, cfg, pln=every, precision="int8w"))
+    assert np.max(np.abs(got - want)) > 2e-2
 
 
 def test_no_batchnorm_stages_bf16():

@@ -17,8 +17,8 @@ n``), on inputs made with numpy:
   paper's dilations (radius 46, slabs of 2 to 8: multi-hop); bf16 and
   int8w within 2e-2 (tests/test_precision.py) of the single-device
   inner, the megakernel inner's the port's (the contract) and the
-  reference's (at int8w the staged gate, 8e-2: the port's plan stages
-  int8 after every layer);
+  reference's; at int8w every plan, the windows' too, stages int8 where
+  the reference's plan at its shape does;
 - the (batch, Z) grid, and ``ShardGeometryError`` for a depth that does
   not divide and for too few devices;
 - the registry's sharded names, the byte models against the reference's,
@@ -35,10 +35,12 @@ import torch
 from repro.core import executors as ref_executors
 from repro.core import meshnet as ref_meshnet
 from repro.core import pipeline as ref_pipeline
+from repro.kernels import megakernel as ref_megakernel
 from repro.telemetry import traffic as ref_traffic
 from repro_torch import bridge
 from repro_torch.core import executors, meshnet, pipeline, spatial_shard
 from repro_torch.core.spatial_shard import ShardGeometryError
+from repro_torch.kernels import megakernel
 from repro_torch.serving.engine import SegmentationEngine
 from repro_torch.telemetry import traffic
 
@@ -46,7 +48,6 @@ VOL = (16, 8, 8)  # slabs of 8, 4 and 2: all thinner than the radius 46
 SLABS = (2, 4, 8)
 ATOL = 1e-4  # tests/test_sharded_executor.py
 REDUCED_ATOL = 2e-2  # tests/test_precision.py::TestShardedPrecisionParity
-STAGED_INT8W_ATOL = 8e-2  # int8 staging between segments (tests/test_torch_megakernel_precision.py)
 INNERS = {"torch": "xla", "cuda_fused": "pallas_fused", "cuda_megakernel": "pallas_megakernel"}
 
 
@@ -231,35 +232,26 @@ def test_sharded_reduced_policies(inner, precision):
     """The reference's reduced sharded test's case (dilations (1, 2, 4),
     16 x 8 x 8): bf16 halos for the layer-wise inners, the int8 input
     crossing for the megakernel inner at int8w; each within 2e-2 of the
-    single-device inner at its policy. The layer-wise inners are held to
-    the reference's, the megakernel inner to the port's and, at bf16, to
-    the reference's; at int8w the port's plan stages int8 after every
-    layer where the reference's plan at this shape is one segment, so
-    there it is held to the reference's staged gate."""
+    single-device inner at its policy. Every inner is held to the
+    reference's, the megakernel inner to the port's as well."""
     model = dict(channels=5, num_classes=3, dilations=(1, 2, 4))
     cfg, ref_cfg, params, port, x = _case(model, seed=30)
     reference = _reference(INNERS[inner], "small", params, x, ref_cfg, precision)
-    wants = [(reference, REDUCED_ATOL)]
+    wants = [reference]
     if inner == "cuda_megakernel":
-        single = executors.apply(inner, port, torch.from_numpy(x), cfg, precision=precision).float().numpy()
-        # int8w: more than 2e-2 from the reference's here (ROADMAP Queue 3,
-        # F2); held to the reference's staged gate instead
-        wants = [(single, REDUCED_ATOL), (reference, REDUCED_ATOL if precision == "bf16" else STAGED_INT8W_ATOL)]
+        wants.append(executors.apply(inner, port, torch.from_numpy(x), cfg, precision=precision).float().numpy())
     for n in SLABS:
         got = _sharded(inner, port, x, cfg, n, precision)
-        for want, atol in wants:
-            np.testing.assert_allclose(got, want, atol=atol, rtol=0, err_msg=f"{inner}@{n}@{precision}")
+        for want in wants:
+            np.testing.assert_allclose(got, want, atol=REDUCED_ATOL, rtol=0, err_msg=f"{inner}@{n}@{precision}")
 
 
-@pytest.mark.xfail(strict=True, raises=AssertionError,
-                   reason="fault F2 (ROADMAP Queue 3): the port's int8w plan stages int8 after every layer")
 @pytest.mark.parametrize("n", SLABS)
 def test_sharded_megakernel_int8w_within_the_references_bound(n):
     """The reference's bound for the sharded int8w megakernel, 2e-2 of its
     single-device inner (tests/test_precision.py:266), on the case of
-    ``test_sharded_reduced_policies``. Open fault F2: the port misses it,
-    so this case shows the fault until the planner prices staging error;
-    ``test_sharded_reduced_policies`` holds the staged gate beside it."""
+    ``test_sharded_reduced_policies`` (fault F2, fixed: the int8w plan
+    stages int8 where the reference's does, here nowhere)."""
     model = dict(channels=5, num_classes=3, dilations=(1, 2, 4))
     cfg, ref_cfg, params, port, x = _case(model, seed=30)
     reference = _reference("pallas_megakernel", "small", params, x, ref_cfg, "int8w")
@@ -267,10 +259,37 @@ def test_sharded_megakernel_int8w_within_the_references_bound(n):
     np.testing.assert_allclose(got, reference, atol=REDUCED_ATOL, rtol=0)
 
 
+def test_int8w_plans_stage_int8_where_the_references_do():
+    """The int8w plan of the single-device volume and of every slab +
+    halo window (each plans for its own shape, as the reference's windows
+    do) stages int8 exactly at the boundaries of the reference's plan at
+    that shape: on the reference's sharded case nowhere; for gwm_light's
+    9 layers at 16 x 8 x 8 before layers 3-7 and in its taller windows
+    4-7 (so there, in both packages, the windows stage otherwise than the
+    whole volume), and at 256^3 and in its 4-slab windows before 4 and 5."""
+    model = dict(channels=5, num_classes=3, dilations=(1, 2, 4))
+    cfg, ref_cfg, _, _, _ = _case(model, seed=30)
+    gwm = (meshnet.PAPER_MODELS["gwm_light"], ref_meshnet.PAPER_MODELS["gwm_light"])
+    cases = [((cfg, ref_cfg), VOL, SLABS, set()), (gwm, VOL, SLABS, {3, 4, 5, 6, 7}),
+             (gwm, (256, 256, 256), (4,), {4, 5})]
+    for (port_cfg, reference_cfg), vol, slabs, whole in cases:
+        for n in (1,) + slabs:
+            shape = vol if n == 1 else (vol[0] // n + 2 * sum(port_cfg.dilations),) + vol[1:]
+            ref_plan = ref_megakernel.plan_for_config(reference_cfg, shape, precision="int8w")
+            pln = megakernel.plan_for_config(port_cfg, shape, precision="int8w")
+            assert pln.widths == (2, 1, 1, 1) and pln.int8_at == {seg.start for seg in ref_plan.segments[1:]}
+            assert pln.crossings == len(ref_plan.segments) - 1
+            if n == 1 or vol[0] == 256 or port_cfg is cfg:
+                assert pln.int8_at == whole, (vol, n)
+            else:
+                assert pln.int8_at == {4, 5, 6, 7}, (vol, n)
+
+
 def test_sharded_megakernel_int8w_is_the_single_device_forward():
     """At int8w the megakernel inner quantises before the exchange and each
-    window plans its own segments; the staging is pointwise, so the slabs
-    give the single-device int8w forward to within fp32 rounding."""
+    window plans for its own shape (no int8 crossing here, as in the
+    single-device plan); the staging is pointwise, so the slabs give the
+    single-device int8w forward to within fp32 rounding."""
     model = dict(channels=5, num_classes=3, dilations=(1, 2, 4))
     cfg, _, _, port, x = _case(model, seed=31)
     want = executors.apply("cuda_megakernel", port, torch.from_numpy(x), cfg, precision="int8w").float().numpy()

@@ -21,7 +21,8 @@ staging) a segment. Phases, each printed on lines of its own:
 1. device   the card's name and power limit (nvidia-smi), torch and CUDA
 2. build    nvcc builds every kernel source of the port, all at once,
             timed, with ptxas' register and shared-memory report; K1, K2
-            and K2r (the conv tile core) spill no register at any width
+            (the conv tile core) and K2r (the bf16 tensor-core kernel)
+            spill no register at any width
 3. parity   K1 against its plain PyTorch version on the card, relative
             error <= 5e-5 of the output's magnitude; then K2 segment by
             segment against its plain version (same staging arrays in,
@@ -143,19 +144,25 @@ staging) a segment. Phases, each printed on lines of its own:
                 256^3 (kernel, plain, F.conv3d at bf16, the bound: bf16
                 tensor-core operations or 2-byte activations, and the fp32
                 CUDA-core time of its operations); K2r per segment of the
-                256^3 plan at bf16 and int8w (kernel, plain, the bound:
-                the function's operations over the bf16 tensor-core peak or
-                its bytes at the policy's widths, blocks an SM held to the
-                runtime's, registers), each plan's segments and int8
-                crossings; the whole forwards at fp32, bf16 and int8w under
-                cuda_fused and cuda_megakernel
+                256^3 plan at bf16 and int8w (a call's CUDA-event time,
+                as every kernel's, and beside it its device time, 10 calls
+                back to back; plain,
+                F.conv3d at bf16 over the same layers, the bound: the
+                function's operations over the bf16 tensor-core peak or
+                its bytes at the policy's widths, the planner's modeled
+                ms, its tensor-core MACs, input rows and (row, tap row)
+                pairs, blocks an SM held to the runtime's, registers), each
+                plan's segments and int8 crossings; the whole forwards at
+                fp32, bf16 and int8w under cuda_fused and cuda_megakernel
             9e  K2r against its plain version at 256^3, segment by segment
-                on the same staging arrays with poisoned borders (NaN for
-                bf16, -128 for int8), at bf16 and int8w, on the planner's
-                plan (gwm_light and brain_mask_fast; its segments and int8
-                crossings printed: under int8w int8 at the reference
-                plan's boundaries only) and on a forced plan of
-                multi-layer segments (gwm_light): int8 codes within +-1
+                on the same staging arrays with poisoned borders and
+                position and row-pitch pads (NaN for bf16, -128 for int8),
+                at bf16 and int8w, on the planner's plan (gwm_light and
+                brain_mask_fast; its segments and int8 crossings printed:
+                under int8w int8 at the reference plan's boundaries only,
+                the segments after them dequantising), on a forced plan of
+                multi-layer segments and, at int8w, on the plan with int8
+                at every boundary (gwm_light): int8 codes within +-1
                 and equal at >= 99.9 %, bf16 within one bf16 step at the
                 array's largest magnitude; then each forward under
                 cuda_megakernel against the plain version of its plan,
@@ -165,13 +172,18 @@ staging) a segment. Phases, each printed on lines of its own:
                 agreements printed
 10. shard   gwm_light at 256^3 on 4 Z-slabs ([cuda:0] * 4 on one card):
             10a K2z and K2r-z against their plain versions on the first
-                and last windows, rows outside the bounds junk;
+                and last windows, segment by segment on the bands the
+                slab's kept rows need, rows outside the bounds and the rows
+                no band writes junk, each within the gates of 9e; the kept
+                rows bit-equal to the whole window's;
             10b main paths: sharded_cuda_megakernel@4 at fp32, bf16 and
                 int8w (the single-device and window plans' segments and
-                int8 crossings printed) and
-                sharded_cuda_fused@4, each held to its single-device
-                forward; pipeline.run(shard_devices=4);
-            10c K2z and K2r-z times per window segment, and the sharded
+                int8 crossings printed; bit-equal to the whole windows'
+                forwards cropped) and sharded_cuda_fused@4, each held to its
+                single-device forward; pipeline.run(shard_devices=4);
+            10c K2z and K2r-z CUDA-event times per window segment on its
+                band (device times beside them, plain, F.conv3d over the band's rows, the bound over the
+                band and over the rows inside z_bounds), and the sharded
                 forwards beside the single-device ones
 11. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r,
             K2z)
@@ -307,6 +319,35 @@ def cold_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``runs``
+    calls that run back to back on the card, enqueued by the host while a
+    spin kernel holds the card, then divided by ``runs``. A short launch
+    (K2r's, a window's K2z) takes less device time than its wrapper takes
+    on the host, so events around calls that the card waits for would time
+    the host. Fails unless the host enqueued every call before the spin
+    ended (else it retries with a longer spin)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin = 40_000_000  # about 20 ms at the H100's clock
+    for _ in range(4):
+        before, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        before.record()
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < before.elapsed_time(start):
+            return start.elapsed_time(end) / runs
+        spin *= 4
+    check(False, f"the host did not enqueue {runs} calls within the card's spin ({host_ms:.1f} ms)")
 
 
 def conv_inputs(gen, shape, cin, cout, device):
@@ -1506,8 +1547,15 @@ def lp_gap(got: torch.Tensor, expect: torch.Tensor) -> tuple[bool, str, float]:
 def poisoned(t: torch.Tensor, region: tuple) -> torch.Tensor:
     """A copy of staging array ``t`` whose border (all but ``region``) is
     poison no code writes: NaN for fp32 and bf16, -128 for int8 (codes
-    stop at -127)."""
-    out = torch.full_like(t, -128) if t.dtype == torch.int8 else torch.full_like(t, float("nan"))
+    stop at -127). A bf16 or int8 copy has K2r's layout
+    (``megakernel.staging_empty``) with the pads of its positions and x-row
+    pitches poisoned too."""
+    poison = -128 if t.dtype == torch.int8 else float("nan")
+    if t.dtype == torch.float32:
+        out = torch.full_like(t, poison)
+    else:
+        out = k2.staging_empty(tuple(t.shape), t.dtype, t.device)
+        out.as_strided((t.shape[0] * out.stride(0),), (1,)).fill_(poison)
     out[region] = t[region]
     return out
 
@@ -1594,6 +1642,8 @@ def phase_reduced_megakernel(dev, size: int) -> float:
             plans = [("planner's", pln)]
             if name == "gwm_light":
                 plans.append(("forced", forced_k2r_plan(cfg, (size,) * 3, pln.widths)))
+                if precision == "int8w":  # every later segment dequantises its int8 input (hi and lo weights)
+                    plans.append(("int8 at every boundary", dataclasses.replace(pln, int8_at=None)))
             for which, p in plans:
                 print(f"K2r {name} {precision} {which} plan at {size}^3: {plan_text(p)}")
                 for i, act, operands in k2r_stagings(p, prepared, cfg, x[..., None], precision, scales):
@@ -1653,13 +1703,15 @@ def k2r_work(pln, i: int, vol=None) -> tuple[int, int]:
     return ops_, voxels * seg.cin * ib + weights + 4 * vectors + voxels * seg.cout * ob
 
 
-def k2z_work(work, pln, i: int, z_bounds) -> tuple[int, int]:
+def k2z_work(work, pln, i: int, z_bounds, band=None) -> tuple[int, int]:
     """(operations, bytes) of K2z's (K2r-z's) segment i on a window with
     valid rows ``z_bounds``: ``work`` (``k2_work`` or ``k2r_work``) over
-    the rows inside ``ref.z_interval`` only. Rows outside hold zeros that
-    no output of the sharded forward reads, so their outputs and the taps
-    into them are not part of the function."""
-    lo, hi = ref.z_interval(pln.vol[0], z_bounds)
+    the rows inside ``ref.z_interval`` only, or, with ``band``, over the
+    band's rows only (``megakernel.band_rows``: the rows the slab's kept
+    rows need from this segment). Rows outside hold zeros or values no
+    output of the sharded forward reads, so their outputs and the taps into
+    them are not part of the function."""
+    lo, hi = ref.z_interval(pln.vol[0], z_bounds) if band is None else k2.band_rows(pln, i, band)
     return work(pln, i, (hi - lo,) + tuple(pln.vol[1:]))
 
 
@@ -1834,8 +1886,10 @@ def phase_reduced_times(dev, card: str, size: int) -> tuple[list[dict], list[dic
         print(f"times forward cuda_fused {precision}: {ms:.4f} ms (one gwm_light forward at {size}^3, params prepared)")
 
     # K2r: every segment of the 256^3 plan at each policy on the staging
-    # array it reads; its bound counts the function's own work at the
-    # policy's widths, its operations at the bf16 tensor-core rate
+    # array it reads, a call's CUDA-event time (``time_ms``, as every
+    # kernel's; its device time, ``device_ms``, beside it); its bound counts the function's own work
+    # at the policy's widths, its operations at the bf16 tensor-core rate;
+    # the library's bf16 conv (F.conv3d, cuDNN) over the same layers
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     k2r_rows = []
     for precision in ("bf16", "int8w"):
@@ -1845,28 +1899,35 @@ def phase_reduced_times(dev, card: str, size: int) -> tuple[list[dict], list[dic
         for i, act, operands in k2r_stagings(pln, prepared, cfg, xs[..., None], precision, scales):
             seg = pln.segments[i]
             kernel_ms = time_ms(lambda: k2.run_segment(act, pln, i, *operands))
+            dev_ms = device_ms(lambda: k2.run_segment(act, pln, i, *operands))
             plain_ms = time_ms(lambda: ref.megakernel_segment(act, pln, i, *operands), runs=5)
+            library_ms = band_conv_ms(act, pln, params, cfg, i, None, torch.bfloat16)
             ops_, bytes_ = k2r_work(pln, i)
             bound_ms, bound_by = bound(ops_, bytes_, BF16_TC_PEAK, peak_bw)
             macs, modeled = pln.segment_operations(i), pln.segment_hbm_bytes(i)
             plan_bound_ms, plan_bound_by = bound(2 * macs, modeled, BF16_TC_PEAK, peak_bw)
-            smem = int(k2._segment_smem_bytes(seg, pln.widths))
+            smem = int(k2._segment_smem_bytes(seg, pln.widths, pln.stage(i)))
             blocks, per_sm = pln.segment_blocks(i), k2.blocks_per_sm(seg, pln.widths, pln.stage(i))
             check(per_sm == int(k2._blocks_per_sm(smem, seg.channels, pln.widths)),
                   f"K2r segment {i}: the planner's blocks an SM differ from the runtime's {per_sm}")
+            tc_macs, in_rows, pairs = k2._lp_segment_work(seg, pln.vol, 1, pln.widths, pln.stage(i))
             row = dict(
                 precision=precision, segment=i, dilations=list(seg.dilations), tile=list(seg.tile),
                 fuse_head=seg.fuse_head, staging=[str(t).replace("torch.", "") for t in pln.dtypes(i)],
-                smem_bytes=smem, blocks=blocks, blocks_per_sm=per_sm, waves=blocks / (sms * per_sm),
-                registers=k2.REGISTERS_LP[seg.channels], kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, share_of_bound=bound_ms / kernel_ms, fp32_cuda_core_ms=ops_ / peak_fp32 * 1e3,
-                modeled_ms=pln.segment_modeled_ms(i), ops=ops_, bytes=bytes_, plan_bound_ms=plan_bound_ms,
-                plan_bound_by=plan_bound_by, multiply_adds=macs, modeled_bytes=modeled,
+                dequantises=bool(k2.scale_operands(pln, i)[0]), smem_bytes=smem, blocks=blocks, blocks_per_sm=per_sm,
+                waves=blocks / (sms * per_sm), registers=k2.REGISTERS_LP[seg.channels], kernel_ms=kernel_ms,
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / kernel_ms, fp32_cuda_core_ms=ops_ / peak_fp32 * 1e3,
+                modeled_ms=pln.segment_modeled_ms(i), tensor_core_macs=float(tc_macs), input_rows=float(in_rows), row_pairs=float(pairs),
+                ops=ops_, bytes=bytes_, plan_bound_ms=plan_bound_ms, plan_bound_by=plan_bound_by, multiply_adds=macs,
+                modeled_bytes=modeled,
             )
             print("times K2r " + json.dumps(row))
             k2r_rows.append(row)
-        print(f"times K2r plan {precision}: {plan_text(pln)}; modeled {pln.modeled_ms():.4f} ms; kernels "
-              f"{sum(r['kernel_ms'] for r in k2r_rows if r['precision'] == precision):.4f} ms")
+        mine = [r for r in k2r_rows if r["precision"] == precision]
+        print(f"times K2r plan {precision}: {plan_text(pln)}; modeled {pln.modeled_ms():.4f} ms (segments "
+              f"{sum(r['modeled_ms'] for r in mine):.4f}); kernels {sum(r['kernel_ms'] for r in mine):.4f} ms (CUDA "
+              f"events; device time {sum(r['device_ms'] for r in mine):.4f}); F.conv3d {sum(r['library_ms'] for r in mine):.4f} ms")
     for precision in ("fp32", "bf16", "int8w"):
         prepared = quantize.prepare_params(params, cfg, precision)
         ms = time_ms(lambda: ops.meshnet_apply_megakernel(prepared, xs, cfg, precision=precision))
@@ -1917,14 +1978,18 @@ def junk_outside(t: torch.Tensor, vol, lo: int, hi: int, h: int) -> torch.Tensor
     return out
 
 
-def k2z_stagings(pln, params, cfg, window: torch.Tensor, bounds, precision: str, scales):
-    """Yield (i, input staging, operands) for every segment of a window's
-    plan: the first staging the window, each later one K2z's (K2r-z's)
-    output of the segment before; every border poisoned and every row
-    outside the bounds junk. ``params`` prepared for ``precision``."""
+def k2z_stagings(pln, params, cfg, window: torch.Tensor, bounds, precision: str, scales, rows=None):
+    """Yield (i, input staging, operands, band) for every segment of a
+    window's plan: the first staging the window, each later one K2z's
+    (K2r-z's) output of the segment before; every border poisoned and every
+    row outside the bounds junk. With ``rows`` (the slab's kept rows) each
+    segment runs on its band (``megakernel.segment_bands``), and the rows
+    of its input outside the band before it, which no launch writes, are
+    junk too. ``params`` prepared for ``precision``."""
     first = pln.segments[0]
     h = first.halo
     lo, hi = ref.z_interval(pln.vol[0], bounds)
+    bands = k2.segment_bands(pln, rows, bounds) if rows is not None else [None] * len(pln.segments)
     act = torch.zeros((window.shape[0],) + tuple(p + 2 * h for p in pln.padded(first)) + (window.shape[-1],),
                       dtype=window.dtype, device=window.device)
     act[:, h : h + pln.vol[0], h : h + pln.vol[1], h : h + pln.vol[2]] = window
@@ -1933,10 +1998,13 @@ def k2z_stagings(pln, params, cfg, window: torch.Tensor, bounds, precision: str,
         deq, qs = k2.scale_operands(pln, i) if precision != "fp32" else (False, False)
         operands = (layers, head, scales[seg.start - 1] if deq else None,
                     scales[seg.start + len(seg.dilations) - 1] if qs else None)
-        act = junk_outside(act, pln.vol, lo, hi, seg.halo)
-        yield i, act, operands
+        if i > 0 and rows is not None:  # the rows the band before left unwritten
+            act = junk_outside(act, pln.vol, max(lo, bands[i - 1][0]), min(hi, bands[i - 1][1]), seg.halo)
+        else:
+            act = junk_outside(act, pln.vol, lo, hi, seg.halo)
+        yield i, act, operands, bands[i]
         if i + 1 < len(pln.segments):
-            act = k2.run_segment(act, pln, i, *operands, z_bounds=bounds)
+            act = k2.run_segment(act, pln, i, *operands, z_bounds=bounds, band=bands[i])
 
 
 def sharded_models(dev, size: int):
@@ -1949,10 +2017,12 @@ def sharded_models(dev, size: int):
 
 def phase_sharded_parity(dev, size: int) -> dict:
     print(f"== phase 10a: K2z and K2r-z against their plain versions on the {SLABS}-slab windows at {size}^3 "
-          "(the first and last slabs: the volume's ends inside the window), segment by segment, rows outside the "
-          "bounds junk")
+          "(the first and last slabs: the volume's ends inside the window), segment by segment on the bands their "
+          "kept rows need, rows outside the bounds and the rows no band writes junk; the kept rows against the whole "
+          "window's, bit for bit")
     cfg, params, _, x = sharded_models(dev, size)
     worst = {"fp32": 0.0, "bf16": 0.0}  # the largest fp32 and bf16 differences (int8 codes: within 1)
+    radius, dloc = sum(cfg.dilations), size // SLABS
     for precision in ("fp32", "bf16", "int8w"):
         prepared = quantize.prepare_params(params, cfg, precision)
         scales = quantize.staging_scales_from_bn(prepared, cfg) if precision == "int8w" else None
@@ -1963,25 +2033,38 @@ def phase_sharded_parity(dev, size: int) -> dict:
             pln = k2.plan_for_config(cfg, vol, precision=precision)
             if which == "forced":  # multi-layer segments: the per-layer mask inside a segment acts
                 pln = forced_k2r_plan(cfg, vol, pln.widths)
-            for i, act, operands in k2z_stagings(pln, prepared, cfg, window, bounds, precision, scales):
-                seg = pln.segments[i]
-                out = k2.run_segment(act, pln, i, *operands, z_bounds=bounds)
-                synchronize(dev)
-                got = out[written(pln, i)]
-                expect = ref.megakernel_segment(act, pln, i, *operands, z_bounds=bounds)[written(pln, i)]
-                check(bool(torch.isfinite(got.float()).all()), f"K2z {precision} slab {slab} segment {i} finite")
-                if precision == "fp32":
-                    diff, rel = rel_err(got, expect)
-                    ok, what = rel <= KERNEL_REL_TOL, f"max_abs_err {diff:.3e} rel {rel:.3e}"
-                else:
-                    ok, what, diff = lp_gap(got, expect)
-                print(f"K2z {precision} slab {slab} window {vol} bounds {bounds} {which} plan segment "
-                      f"{i}/{len(pln.segments)} dilations {seg.dilations} tile {seg.tile}: {what}")
-                check(ok, f"K2z {precision} slab {slab} segment {i}: {what}")
-                if got.dtype != torch.int8:
-                    key = "fp32" if got.dtype == torch.float32 else "bf16"
-                    worst[key] = max(worst[key], diff)
-                del out, got, expect
+            kept = {}
+            for rows in (None, (radius, radius + dloc)):
+                for i, act, operands, band in k2z_stagings(pln, prepared, cfg, window, bounds, precision, scales, rows):
+                    seg = pln.segments[i]
+                    out = k2.run_segment(act, pln, i, *operands, z_bounds=bounds, band=band)
+                    synchronize(dev)
+                    if i + 1 == len(pln.segments):  # the slab's kept rows
+                        kept[rows] = out[:, radius : radius + dloc, : vol[1], : vol[2]].clone()
+                    if rows is None:  # the whole window: its kept rows only (the card tests hold it segment by segment)
+                        continue
+                    lo, hi = k2.band_rows(pln, i, band)
+                    o = pln.out_halo(i)
+                    region = (slice(None), slice(o + lo, o + hi)) + written(pln, i)[2:]
+                    got = out[region]
+                    expect = ref.megakernel_segment(act, pln, i, *operands, z_bounds=bounds, band=band)[region]
+                    check(bool(torch.isfinite(got.float()).all()), f"K2z {precision} slab {slab} segment {i} finite")
+                    if precision == "fp32":
+                        diff, rel = rel_err(got, expect)
+                        ok, what = rel <= KERNEL_REL_TOL, f"max_abs_err {diff:.3e} rel {rel:.3e}"
+                    else:
+                        ok, what, diff = lp_gap(got, expect)
+                    print(f"K2z {precision} slab {slab} window {vol} bounds {bounds} {which} plan segment "
+                          f"{i}/{len(pln.segments)} dilations {seg.dilations} tile {seg.tile} rows {[lo, hi]}: {what}")
+                    check(ok, f"K2z {precision} slab {slab} segment {i} rows {[lo, hi]}: {what}")
+                    if got.dtype != torch.int8:
+                        key = "fp32" if got.dtype == torch.float32 else "bf16"
+                        worst[key] = max(worst[key], diff)
+                    del out, got, expect
+            same = torch.equal(kept[None], kept[(radius, radius + dloc)])
+            print(f"K2z {precision} slab {slab} {which} plan: the kept rows on bands bit-equal to the whole window's: "
+                  f"{same}")
+            check(same, f"K2z {precision} slab {slab} {which}: banded kept rows differ from the whole window's")
     return worst
 
 
@@ -1997,6 +2080,14 @@ def phase_sharded(dev, size: int, rehearsal: bool) -> dict:
         single = executors.apply("cuda_megakernel", params, x, cfg, precision=precision).float()
         got, counts = count_launches(dev, lambda: spatial_shard.sharded_executor_apply(
             "cuda_megakernel", params, x, cfg, precision=precision, devices=devices))
+        # the same windows without bands, cropped: the kept rows bit for bit
+        prepared, radius = quantize.prepare_params(params, cfg, precision), sum(cfg.dilations)
+        whole = torch.cat([ops.meshnet_apply_megakernel(prepared, w, cfg, precision=precision, z_bounds=b)[
+            :, radius : radius + size // SLABS] for w, b in slab_windows(x, cfg, SLABS, precision)], 1)
+        same = torch.equal(got, whole)
+        print(f"sharded_cuda_megakernel@{SLABS} {precision}: on bands bit-equal to the whole windows cropped: {same}")
+        check(same, f"sharded megakernel {precision}: the banded forward differs from the whole windows'")
+        del whole
         got = got.float()
         whole = k2.plan_for_config(cfg, tuple(x.shape[1:4]), precision=precision)
         part = k2.plan_for_config(cfg, window, precision=precision)
@@ -2047,37 +2138,71 @@ def phase_sharded(dev, size: int, rehearsal: bool) -> dict:
     return out
 
 
+def band_conv_ms(x: torch.Tensor, pln, params, cfg, i: int, band, dtype) -> float:
+    """CUDA-event median of the library's conv (``F.conv3d``, cuDNN; TF32
+    off; milliseconds a call, so the host's time is hidden) over segment
+    i's layers on the rows its band needs: its input's rows
+    within the segment's halo of the band, each layer a valid-Z conv
+    ('same' in Y and X) at ``dtype``, so that the output is the band's
+    rows. Timed beside K2z; the port never calls it."""
+    seg = pln.segments[i]
+    lo, hi = k2.band_rows(pln, i, band)
+    rows = hi - lo + 2 * seg.halo
+    gen = torch.Generator().manual_seed(SEED + i)
+    convs = []
+    cin = seg.cin
+    for li, d in enumerate(seg.dilations):
+        w = params["layers"][seg.start + li]["w"].float().permute(4, 3, 0, 1, 2).contiguous().to(dtype)
+        inp = torch.rand((x.shape[0], cin, rows, pln.vol[1], pln.vol[2]), generator=gen).to(x.device, dtype)
+        inp = inp.to(memory_format=torch.channels_last_3d)
+        convs.append((inp, w, d))
+        rows -= 2 * d
+        cin = seg.channels
+    return time_ms(lambda: [F.conv3d(inp, w, None, padding=(0, d, d), dilation=d) for inp, w, d in convs], runs=5)
+
+
 def phase_sharded_times(dev, card: str, size: int) -> list[dict]:
-    print(f"== phase 10c: K2z and K2r-z times on the {SLABS} windows, and the sharded forwards beside the "
-          f"single-device ones ({size}^3, card: {card})")
+    print(f"== phase 10c: K2z and K2r-z times on the {SLABS} windows (each segment on the band of rows its slab "
+          f"keeps), and the sharded forwards beside the single-device ones ({size}^3, card: {card})")
     _, peak_fp32, peak_bw = peaks_for(card)
     cfg, params, _, x = sharded_models(dev, size)
     devices = slab_devices(dev, SLABS)
+    radius, dloc = sum(cfg.dilations), size // SLABS
     rows = []
     for precision in ("fp32", "bf16", "int8w"):
         prepared = quantize.prepare_params(params, cfg, precision)
         scales = quantize.staging_scales_from_bn(prepared, cfg) if precision == "int8w" else None
         for slab, (window, bounds) in enumerate(slab_windows(x, cfg, SLABS, precision)):
             pln = k2.plan_for_config(cfg, tuple(window.shape[1:4]), precision=precision)
-            for i, act, operands in k2z_stagings(pln, prepared, cfg, window, bounds, precision, scales):
-                kernel_ms = time_ms(lambda: k2.run_segment(act, pln, i, *operands, z_bounds=bounds))
-                plain_ms = time_ms(lambda: ref.megakernel_segment(act, pln, i, *operands, z_bounds=bounds),
-                                   runs=2, warmup=1)
+            for i, act, operands, band in k2z_stagings(pln, prepared, cfg, window, bounds, precision, scales,
+                                                       (radius, radius + dloc)):
+                kernel_ms = time_ms(lambda: k2.run_segment(act, pln, i, *operands, z_bounds=bounds, band=band))
+                dev_ms = device_ms(lambda: k2.run_segment(act, pln, i, *operands, z_bounds=bounds, band=band))
+                plain_ms = time_ms(lambda: ref.megakernel_segment(act, pln, i, *operands, z_bounds=bounds, band=band),
+                                   runs=1, warmup=1)
                 fp32 = precision == "fp32"
-                ops_, bytes_ = k2z_work(k2_work if fp32 else k2r_work, pln, i, bounds)
-                bound_ms, bound_by = bound(ops_, bytes_, peak_fp32 if fp32 else BF16_TC_PEAK, peak_bw)
+                library_ms = band_conv_ms(act, pln, params, cfg, i, band, torch.float32 if fp32 else torch.bfloat16)
+                work = k2_work if fp32 else k2r_work
+                peak = peak_fp32 if fp32 else BF16_TC_PEAK
+                ops_, bytes_ = k2z_work(work, pln, i, bounds, band)
+                bound_ms, bound_by = bound(ops_, bytes_, peak, peak_bw)
+                ops_z, bytes_z = k2z_work(work, pln, i, bounds)
+                bound_z_ms, bound_z_by = bound(ops_z, bytes_z, peak, peak_bw)
                 seg = pln.segments[i]
-                row = dict(precision=precision, slab=slab, bounds=list(bounds), segment=i,
-                           dilations=list(seg.dilations), tile=list(seg.tile), blocks=pln.segment_blocks(i),
-                           kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                           share_of_bound=bound_ms / kernel_ms, modeled_ms=pln.segment_modeled_ms(i), ops=ops_,
-                           bytes=bytes_)
+                row = dict(precision=precision, slab=slab, bounds=list(bounds), band=list(k2.band_rows(pln, i, band)),
+                           segment=i, dilations=list(seg.dilations), tile=list(seg.tile), blocks=pln.segment_blocks(i),
+                           kernel_ms=kernel_ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / kernel_ms,
+                           bound_zbounds_ms=bound_z_ms, bound_zbounds_by=bound_z_by,
+                           modeled_ms=pln.segment_modeled_ms(i), ops=ops_, bytes=bytes_)
                 print("times K2z " + json.dumps(row))
                 rows.append(row)
         mine = [r for r in rows if r["precision"] == precision]
         print(f"times K2z {precision}: {len(mine)} launches a {SLABS}-slab forward, kernels "
-              f"{sum(r['kernel_ms'] for r in mine):.4f} ms, plain {sum(r['plain_ms'] for r in mine):.4f} ms, bound "
-              f"{sum(r['bound_ms'] for r in mine):.4f} ms")
+              f"{sum(r['kernel_ms'] for r in mine):.4f} ms (CUDA events; device time "
+              f"{sum(r['device_ms'] for r in mine):.4f}), plain {sum(r['plain_ms'] for r in mine):.4f} "
+              f"ms, F.conv3d {sum(r['library_ms'] for r in mine):.4f} ms, bound {sum(r['bound_ms'] for r in mine):.4f} "
+              f"ms over the bands ({sum(r['bound_zbounds_ms'] for r in mine):.4f} over the rows inside z_bounds)")
     for inner, policies in (("cuda_megakernel", ("fp32", "bf16", "int8w")), ("cuda_fused", ("fp32", "bf16", "int8w"))):
         for precision in policies:
             prepared = quantize.prepare_params(params, cfg, precision)
@@ -2147,7 +2272,9 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
                 "plain_ms": t2["plain_ms"],
                 "bound_ms": b2,
                 "bound_by": by2,
-                "library_ms": None,
+                "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in rows),
+                "library": "F.conv3d (cuDNN, fp32, TF32 off) over the same 9 one-layer segments' layers (phase 6), "
+                           "conv + bias only",
                 "plan_bound_ms": sum(r["plan_bound_ms"] for r in seg_rows),
                 "per": f"one gwm_light forward at 256^3 ({len(seg_rows)} launches, one a segment); sums of per-segment medians",
             },
@@ -2252,14 +2379,20 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
                 "plain_ms": tk16["plain_ms"],
                 "bound_ms": bk16,
                 "bound_by": byk16,
-                "library_ms": None,
+                "library_ms": sum(r["library_ms"] for r in s16),
+                "library": "F.conv3d (cuDNN) on bf16 operands over the same segments' layers (phase 9d), conv only",
+                "device_ms": sum(r["device_ms"] for r in s16),
+                "modeled_ms": sum(r["modeled_ms"] for r in s16),
                 "plan_bound_ms": sum(r["plan_bound_ms"] for r in s16),
                 "fp32_cuda_core_ms": sum(r["fp32_cuda_core_ms"] for r in s16),
                 "ms_int8w": tk8["kernel_ms"],
                 "plain_ms_int8w": tk8["plain_ms"],
                 "bound_ms_int8w": bk8,
+                "library_ms_int8w": sum(r["library_ms"] for r in s8),
                 "per": f"one gwm_light forward at 256^3 at bf16 ({len(s16)} launches, one a segment; *_int8w the "
-                       "same at int8w, int8 staging); sums of per-segment medians; bound: the function's operations "
+                       "same at int8w, int8 staging); ms: the launches' CUDA-event medians (chip_smoke.time_ms, as "
+                       "every row's), device_ms their device time (10 back to back); bound: the function's "
+                       "operations "
                        "over the bf16 tensor-core peak or its bytes at the policy's widths over the memory rate; "
                        "max_abs_err the worst bf16 gap to the plain version in phase 9e (int8 codes within 1); "
                        "launches from one bf16 and one int8w request served under cuda_megakernel",
@@ -2279,19 +2412,25 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
                 "plain_ms": z["fp32"][0]["plain_ms"],
                 "bound_ms": z["fp32"][1],
                 "bound_by": z["fp32"][2],
-                "library_ms": None,
-                "library": "none: no one call runs a segment",
+                "library_ms": sum(r["library_ms"] for r in k2z_rows if r["precision"] == "fp32"),
+                "library": "F.conv3d (cuDNN; fp32 with TF32 off, bf16 at the reduced policies) over the same "
+                           "window segments' layers on the rows each band needs (phase 10c)",
+                "bound_zbounds_ms": sum(r["bound_zbounds_ms"] for r in k2z_rows if r["precision"] == "fp32"),
+                "device_ms": sum(r["device_ms"] for r in k2z_rows if r["precision"] == "fp32"),
                 "ms_bf16": z["bf16"][0]["kernel_ms"],
                 "plain_ms_bf16": z["bf16"][0]["plain_ms"],
                 "bound_ms_bf16": z["bf16"][1],
                 "ms_int8w": z["int8w"][0]["kernel_ms"],
                 "plain_ms_int8w": z["int8w"][0]["plain_ms"],
                 "bound_ms_int8w": z["int8w"][1],
+                "library_ms_bf16": sum(r["library_ms"] for r in k2z_rows if r["precision"] == "bf16"),
                 "per": f"one sharded_cuda_megakernel@{SLABS} forward of gwm_light at 256^3 at fp32 (*_bf16, *_int8w: "
                        f"K2r-z at those policies): {SLABS} windows of {256 // SLABS} + 2 x 46 rows, one launch a "
-                       "segment of each window's plan; sums of per-segment medians; bound: the work of the rows inside "
-                       "each window's z_bounds (k2z_work: their taps, each input read once, each output written "
-                       "once) at the fp32 CUDA-core peak, "
+                       "segment of each window's plan, each on the band of rows its slab's kept rows need; ms: the "
+                       "launches' CUDA-event medians (chip_smoke.time_ms, as every row's), device_ms their device "
+                       "time (10 back to back); bound: the work of each segment's band (k2z_work: its taps, each input read once, "
+                       "each output written once; bound_zbounds_ms over all the rows inside z_bounds instead) at "
+                       "the fp32 CUDA-core peak, "
                        "the reduced policies' at the bf16 tensor-core peak; launches from the fp32, bf16 and int8w "
                        "sharded forwards of phase 10b; max_abs_err the worst fp32 gap to the plain version in phase "
                        "10a (int8 codes within 1)",

@@ -226,7 +226,9 @@ def _slab_megakernel(params: list, slabs: list, cfg: MeshNetConfig, precision: s
     slab + halo window (planned for the window's shape) with the window's
     valid Z interval as ``z_bounds`` (K2z, K2r-z), so per-layer zero
     padding happens at the volume's ends; a window's inner edges pollute
-    only the halo band the final crop drops. Under int8w the slabs are
+    only the halo band the final crop drops, and the forward computes only
+    the rows the crop keeps (``rows``: each segment the band its
+    successors read). Under int8w the slabs are
     quantised before the exchange (pointwise, so it commutes with it), and
     int8 crosses."""
     n, dloc = len(slabs), slabs[0].shape[1]
@@ -237,7 +239,8 @@ def _slab_megakernel(params: list, slabs: list, cfg: MeshNetConfig, precision: s
         slabs = [quantize.cast_input(x, precision) for x in slabs]
     out = []
     for i, (p, e) in enumerate(zip(params, halo_exchange_z(slabs, radius))):
-        y = ops.meshnet_apply_megakernel(p, e, cfg, precision=precision, z_bounds=window_z_bounds(i, dloc, n, radius))
+        y = ops.meshnet_apply_megakernel(p, e, cfg, precision=precision, z_bounds=window_z_bounds(i, dloc, n, radius),
+                                         rows=(radius, radius + dloc))
         out.append(y[:, radius : radius + dloc])
     return out
 

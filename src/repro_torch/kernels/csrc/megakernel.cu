@@ -8,7 +8,11 @@
 // geometry (the reference's has_z_bounds): the sharded executor's window of
 // a slab and its halo holds the true volume's Z edges inside it, and rows
 // outside the interval are read and written as rows outside the volume. The
-// full interval [0, vol[0]) is plain K2.
+// full interval [0, vol[0]) is plain K2. A band [band_lo, band_hi) of output
+// rows (the rows a sharded window's later segments read) narrows the launch:
+// its grid covers only the Z tiles that meet the band, it reads no input row
+// farther than the segment's halo from the band, and it writes only the
+// band's rows; the default band is the whole tile-padded region.
 //
 // Replaces the TPU kernel src/repro/kernels/megakernel.py::_segment_kernel.
 // That kernel DMAs the tile's haloed input window into VMEM and keeps every
@@ -63,7 +67,7 @@ using conv_tile::Blocking;
 using conv_tile::Box;
 
 constexpr int kMaxLayers = 16;
-constexpr int kGeomFixed = 25;  // ints before the dilations in the geometry array
+constexpr int kGeomFixed = 27;  // ints before the dilations in the geometry array
 constexpr int kSmemLimit = 232448;
 
 using conv_tile::ceil4;
@@ -75,6 +79,8 @@ struct Geom {
   int out_dims[3], out_halo;
   int n_params, ping, pong, ring;  // shared-memory floats
   int z_lo, z_hi;  // the valid Z interval, within [0, vol[0]) (K2z: narrower)
+  int band_lo, band_hi;  // the output rows written, within the tile-padded region
+  int t0_lo;             // the first Z tile that meets the band
   int dil[kMaxLayers];
 };
 
@@ -163,11 +169,13 @@ segment_kernel(const float* __restrict__ x, const float* __restrict__ params,
   const int t2 = (int)(blk % g.ntiles[2]);
   blk /= g.ntiles[2];
   const int t1 = (int)(blk % g.ntiles[1]);
-  const int t0 = (int)(blk / g.ntiles[1]);
+  const int t0 = g.t0_lo + (int)(blk / g.ntiles[1]);
   const int o0 = t0 * g.tile[0], o1 = t1 * g.tile[1], o2 = t2 * g.tile[2];
 
   int r = 0;  // halo the layers from here on still need
   for (int l = 0; l < g.k; ++l) r += g.dil[l];
+  // the input rows read: the valid interval within the segment's halo of the band
+  const int zin_lo = max(g.z_lo, g.band_lo - r), zin_hi = min(g.z_hi, g.band_hi + r);
 
   const float* lp = s_par;  // this layer's parameters
   const float* prev = nullptr;
@@ -207,7 +215,7 @@ segment_kernel(const float* __restrict__ x, const float* __restrict__ params,
             float* pd = dst + ((j0 * s1 + jm) * s2 + j2) * hcs;
 #pragma unroll
             for (int co = 0; co < C; ++co) pd[co] = inside ? v[co] : 0.0f;
-          } else {
+          } else if (gz >= g.band_lo && gz < g.band_hi) {
             const int64_t at = (((int64_t)b * g.out_dims[0] + gz + g.out_halo) * g.out_dims[1] + gy + g.out_halo) *
                                    g.out_dims[2] + gx + g.out_halo;
             if (g.classes > 0) {
@@ -256,7 +264,7 @@ segment_kernel(const float* __restrict__ x, const float* __restrict__ params,
       auto row_of = [&](const Item& c, int s) -> const float* {
         const int z = o0 - ro + c.j0 + (s / (M + 2) - 1) * d;
         const int y = o1 - ro + c.j1 + (s % (M + 2) - 1) * d;
-        if (z < g.z_lo || z >= g.z_hi || y < 0 || y >= g.vol[1]) return nullptr;
+        if (z < zin_lo || z >= zin_hi || y < 0 || y >= g.vol[1]) return nullptr;
         return x + ((((int64_t)b * g.in_dims[0] + z + g.in_halo) * g.in_dims[1] + y + g.in_halo) * g.in_dims[2] +
                     g.in_halo) * cin;
       };
@@ -408,7 +416,9 @@ int repro_megakernel_blocks_per_sm(int c, int cin, int smem) {
 // in_dims[3], in_halo, out_dims[3], out_halo, n_params, ping, pong, ring
 // (the shared-memory layout in floats, which must be the one K2 allocates
 // for this geometry), z_lo, z_hi (the valid Z interval, 0 <= z_lo <= z_hi
-// <= vol[0]), then the k dilations. Returns a cudaError_t (0 on success).
+// <= vol[0]), band_lo, band_hi (the output rows written, 0 <= band_lo <=
+// band_hi <= the tile-padded depth), then the k dilations. Returns a
+// cudaError_t (0 on success).
 int repro_megakernel_segment_f32(const float* x, const float* params,
                                  float* out, const int* geom, int n,
                                  void* stream) {
@@ -432,6 +442,8 @@ int repro_megakernel_segment_f32(const float* x, const float* params,
   g.ring = *p++;
   g.z_lo = *p++;
   g.z_hi = *p++;
+  g.band_lo = *p++;
+  g.band_hi = *p++;
   if (g.k < 1 || g.k > kMaxLayers || n != kGeomFixed + g.k || g.z_lo < 0 || g.z_hi < g.z_lo || g.z_hi > g.vol[0])
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < g.k; ++l) g.dil[l] = *p++;
@@ -439,6 +451,10 @@ int repro_megakernel_segment_f32(const float* x, const float* params,
     if (g.tile[a] < 1) return (int)cudaErrorInvalidValue;
     g.ntiles[a] = (g.vol[a] + g.tile[a] - 1) / g.tile[a];
   }
+  if (g.band_lo < 0 || g.band_hi < g.band_lo || g.band_hi > g.ntiles[0] * g.tile[0]) return (int)cudaErrorInvalidValue;
+  // the grid: the Z tiles that meet the band
+  g.t0_lo = g.band_lo / g.tile[0];
+  g.ntiles[0] = g.band_hi > g.band_lo ? (g.band_hi + g.tile[0] - 1) / g.tile[0] - g.t0_lo : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
     case 5:

@@ -46,17 +46,30 @@ the reference's plan has at that volume (``_reference_starts``, a copy of
 its VMEM planner's choice) and bf16, which the reference's segments round
 to after every layer anyway, at the others; its own boundaries are still
 priced by time, and no segment spans one of the reference's.
-K2r's first layer reads its taps from device memory and widens them in
-registers instead of staging boxes, so its layout (``_smem_layout`` at
-reduced widths) has no ring, its own register table
-(``REGISTERS_LP``) and its own issue cost (``ISSUE_COST_LP``).
+K2r computes its products on the bf16 tensor cores (``mma.sync``
+m16n8k16) and stages its input rows by 16-byte asynchronous copies, so
+every staging array it reads or writes has its own layout
+(``staging_empty``: bf16 positions of several channels padded to 8
+channels, other x rows' pitch padded to 16 bytes; the logical tensor is
+the same). Only the card's path allocates it: the plain version reads
+any layout and returns contiguous arrays. Its layout in shared memory (``_smem_layout`` at reduced
+widths: the weights in fragment order, the copy rings, the A buffers and
+row buffers, bf16 ping and pong), its register table (``REGISTERS_LP``)
+and its time model (``_lp_segment_work``: its input rows, (row, tap row)
+pairs and blocks, measured; its tensor-core MACs; against the bytes) are
+its own.
 
 K2z (and K2r-z) is the same kernel with a narrower valid Z interval,
 ``run_segment(..., z_bounds=(z_lo, z_hi))``, the reference's
 ``has_z_bounds``: the sharded executor (core/spatial_shard.py) runs each
 slab's window of slab + 2 x the receptive-field radius and places the true
 volume's Z edges inside it. The bounds travel in the geometry array, so
-no window depth or bound needs a build of its own.
+no window depth or bound needs a build of its own. ``band=(lo, hi)``
+narrows the rows a launch writes: the grid covers only the Z tiles that
+meet the band, the input rows outside it widened by the segment's halo
+are never read, and the output rows outside it are left unwritten
+(``ops.meshnet_apply_megakernel(..., rows=)`` gives each segment of a
+window the band its successors read).
 
 A CUDA tensor launches K2 (K2r) or raises; a CPU tensor takes the plain
 version (``kernels/ref.py::megakernel_segment``). ``launches`` counts
@@ -131,16 +144,31 @@ THREADS = 32 * WARPS
 #: tests/test_torch_gpu.py holds to the runtime's occupancy. An SM's
 #: 65,536 registers go to warps in units of 8 a thread.
 REGISTERS = {5: 226, 10: 222, 18: 204, 21: 228}
-#: the same for K2r (csrc/megakernel_lp.cu), the most over its bf16 and
-#: int8 input instantiations (at C = 18, 168: three blocks an SM).
-REGISTERS_LP = {5: 233, 10: 187, 18: 168, 21: 183}
+#: the same for K2r (csrc/megakernel_lp.cu, 4 blocks an SM by its launch
+#: bounds, no spill), the most over its bf16 and int8 input instantiations.
+REGISTERS_LP = {5: 128, 10: 128, 18: 127, 21: 128}
 SM_REGISTERS = 65_536
 
-#: K2r's first layer issues its FMAs at this cost against K2's: its taps
-#: are loaded from device memory and widened in registers, not read from a
-#: staged box, as K1r's are; K1r's layers ran 1.27x K1's on the same FMAs
-#: (PERF.md, chip_smoke.py phase 9d). Its hidden layers run K2's core.
-ISSUE_COST_LP = 1.27
+#: K2r's ring (csrc/megakernel_lp.cu): each warp keeps LP_STAGES input
+#: rows in flight (its items: ``_lp_blocking``).
+LP_STAGES = 3
+#: the card's bf16 dense tensor-core rate (NVIDIA's data sheet, 989
+#: TFLOP/s, two operations a MAC).
+TC_MACS_PER_S = 989e12 / 2
+#: K2r's time in seconds of one SM for each input row an item reads (its
+#: copy and A operands) and for each (output row, tap row) pair it
+#: multiplies over its NX voxels (the pair's mmas, B fragments and share
+#: of the epilogue): its time follows these, not its MACs. Fit on an
+#: NVIDIA H100 80GB HBM3 at 700 W (SM clock 1980 MHz) to 5 -> 5 bf16 layers
+#: at d = 2, 8 and 16 over 256^3 with items of 4 rows (1.18M rows, 2.36M
+#: pairs a layer: 1.32-1.35 ms) and of 2 rows (1.57M rows, the same pairs:
+#: 1.42-1.46 ms), one wave of 4 blocks an SM (tools/k2r_variants.py);
+#: and for each block (its weights' staging, its ring's fill and drain):
+#: 11,008 blocks of (4, 6, 64) at d = 2 took 1.83 ms, 0.36 ms over rows
+#: and pairs.
+LP_ROW_S = 25e-9
+LP_PAIR_S = 62e-9
+LP_BLOCK_S = 4.3e-6
 
 #: kernel launches since the counter was last reset (CPU calls don't
 #: count): K2's, K2r's, and those of either with ``z_bounds`` (K2z and
@@ -216,21 +244,88 @@ def _row_groups(n, d, m):
     return n // (m * d) * d + np.minimum(n % (m * d), d)
 
 
-def _smem_layout(seg: Segment, widths: Widths = FP32_WIDTHS) -> tuple:
+def _lp_blocking(c: int) -> tuple[int, int, int, int]:
+    """(M, MT, NT, NX) of K2r for C channels: output rows a warp's item
+    holds (d apart in y), m16 tiles along x, n8 tiles of channels, and the
+    item's x extent (16 MT voxels)."""
+    mt = 4 if c <= 8 else 2 if c <= 16 else 1
+    return (2 if c <= 8 else 3 if c <= 16 else 4), mt, -(-c // 8), 16 * mt
+
+
+def _pos_bytes(cin: int) -> int:
+    """Bytes a position takes in K2r's A layout: its channels as bf16 in
+    groups of 8 (16 bytes), an odd number of groups."""
+    return (-(-cin // 8) | 1) * 16
+
+
+def _ksteps(cin: int) -> int:
+    """k16 steps of one input row in K2r's implicit GEMM: its three x taps
+    times ``cin`` channels in groups of 8, two groups a step."""
+    return (3 * -(-cin // 8) + 1) // 2
+
+
+def _smem_layout_lp(seg: Segment, widths: Widths, stage=None) -> tuple:
+    """(params, ping, pong, ring) in floats (4 bytes; every part a multiple
+    of 16 bytes) of one block of K2r (csrc/megakernel_lp.cu, which checks
+    every launch against it), its input and output staging arrays at the
+    widths ``widths`` and ``stage`` give. params: 16 zero bytes, then per
+    layer its weights as bf16 B fragments of m16n8k16 (9 tap rows x k16
+    steps x n8 tiles x 256 bytes; twice for the first layer of a segment
+    that dequantises its int8 input: the hi and lo halves of its weights
+    times the scales), its A-offset table (8 bytes a k16 step, rounded up
+    to 16) and its bias, scale and offset (3 C floats); then the head's
+    fragments (k16 steps of C x n8 tiles of the classes) and bias, and the
+    dequant and quantisation scales (cin and C floats). ping and pong: the
+    hidden layers' outputs, bf16 in the A layout (``_pos_bytes(C)`` a
+    position). ring: for each of the 4 warps, LP_STAGES slots of one input
+    row span of X + 2 d positions (copied position by position into the A
+    layout from a bf16 staging array of several channels; else as packed
+    bytes, (X + 2 d) cin 2 rounded up to 16, + 32 for the alignment of its
+    ends, then laid out in an A buffer of X + 2 d positions), and an output
+    row buffer (X' cout 2 bytes rounded up to 16, + 16) where the output is
+    int8 or the head's logits; X is the first layer's region x extent and
+    X' the tile's, each at most NX. Accepts numpy tiles."""
+    c, k = seg.channels, len(seg.dilations)
+    _, _, nt, nx = _lp_blocking(c)
+    stage = STAGED if stage is None else stage
+    ib, ob = _in_out_widths(seg, widths, stage)
+    deq = _dequantises(seg, widths, stage)
+    params = 16
+    for li in range(k):
+        ks = _ksteps(seg.cin if li == 0 else c)
+        params += 9 * ks * nt * 256 * (2 if li == 0 and deq else 1) + _ceil_to(8 * ks, 16) + _ceil_to(12 * c, 16)
+    if seg.fuse_head:
+        params += -(-nt // 2) * -(-seg.num_classes // 8) * 256 + _ceil_to(4 * seg.num_classes, 16)
+    params += _ceil_to(4 * seg.cin, 16) + _ceil_to(4 * c, 16)
+    sizes = _layer_sizes(seg.tile, seg.dilations)
+    hidden = [_prod3(s) * _pos_bytes(c) for s in sizes[1:k]]
+    ping = functools.reduce(np.maximum, hidden[0::2]) if hidden else 0
+    pong = functools.reduce(np.maximum, hidden[1::2]) if len(hidden) > 1 else 0
+    span = np.minimum(sizes[1][2], nx) + 2 * seg.dilations[0]
+    if ib == 2 and seg.cin > 1:  # copied straight into the A layout
+        slot, abuf = span * _pos_bytes(seg.cin), 0
+    else:
+        slot, abuf = _ceil_to(span * seg.cin * 2, 16) + 32, span * _pos_bytes(seg.cin)
+    out = _ceil_to(np.minimum(seg.tile[2], nx) * seg.cout * 2, 16) + 16 if (seg.fuse_head or ob == 1) else 0
+    ring = WARPS * (LP_STAGES * slot + abuf + out)
+    return params // 4, ping // 4, pong // 4, ring // 4
+
+
+def _smem_layout(seg: Segment, widths: Widths = FP32_WIDTHS, stage=None) -> tuple:
     """(params, ping, pong, ring) in floats: what one block of K2 (K2r at
-    reduced ``widths``) holds in shared memory. params is every layer's
+    reduced ``widths``: ``_smem_layout_lp``, its staging arrays as
+    ``stage`` says) holds in shared memory. params is every layer's
     weights as fp32 (row stride C rounded up to 4), then its bias, scale
     and offset (3 C rounded up to 4), then the head's weights and bias when
-    fused (rounded up to 4), and for K2r the first layer's per-channel
-    dequant scales and the last layer's quantisation scales (cin + C,
-    rounded up to 4); ping and pong hold the hidden layers' outputs as
-    fp32 (even and odd layers before the last) at channel stride C | 1,
+    fused (rounded up to 4); ping and pong hold the hidden layers' outputs
+    as fp32 (even and odd layers before the last) at channel stride C | 1,
     rounded up to 4; ring is K2's first-layer staging, two slots for each
-    warp that has rows of its output region (at most 4), each ceil4((t_x +
-    2 min(d, t_x)) (Cin | 1)) + 4 floats, t_x the region's x extent up to
-    32 R; K2r's first layer reads device memory directly and has none. The
-    last layer's output goes straight to device memory. Accepts numpy
-    tiles."""
+    warp that has rows of its output region (at most 4), each
+    ceil4((t_x + 2 min(d, t_x)) (Cin | 1)) + 4 floats, t_x the region's x
+    extent up to 32 R. The last layer's output goes straight to device
+    memory. Accepts numpy tiles."""
+    if widths != FP32_WIDTHS:
+        return _smem_layout_lp(seg, widths, stage)
     c, k = seg.channels, len(seg.dilations)
     _, m, cp, x_max = _blocking(c)
     params = 27 * seg.cin * cp + 27 * c * cp * (k - 1) + k * _ceil_to(3 * c, 4)
@@ -240,8 +335,6 @@ def _smem_layout(seg: Segment, widths: Widths = FP32_WIDTHS) -> tuple:
     hidden = [_ceil_to(_prod3(s) * (c | 1), 4) for s in sizes[1:k]]
     ping = functools.reduce(np.maximum, hidden[0::2]) if hidden else 0
     pong = functools.reduce(np.maximum, hidden[1::2]) if len(hidden) > 1 else 0
-    if widths != FP32_WIDTHS:
-        return params + _ceil_to(seg.cin + c, 4), ping, pong, 0
     s, d0 = sizes[1], seg.dilations[0]  # the first layer's output region
     tx = np.minimum(s[2], x_max)
     stagers = np.minimum(WARPS, s[0] * _row_groups(s[1], d0, m) * -(-s[2] // tx))  # warps that have rows of it
@@ -249,15 +342,21 @@ def _smem_layout(seg: Segment, widths: Widths = FP32_WIDTHS) -> tuple:
     return params, ping, pong, ring
 
 
-def _segment_smem_bytes(seg: Segment, widths: Widths = FP32_WIDTHS):
+def _segment_smem_bytes(seg: Segment, widths: Widths = FP32_WIDTHS, stage=None):
     """Shared-memory bytes one block of K2 (K2r) allocates for ``seg``."""
-    return 4 * sum(_smem_layout(seg, widths))
+    return 4 * sum(_smem_layout(seg, widths, stage))
 
 
 #: whether a segment's input and output staging arrays are at the plan's
 #: staging width (else at its activation width; ``MegakernelPlan.int8_at``).
 Stage = tuple[bool, bool]
 STAGED: Stage = (True, True)
+
+
+def _dequantises(seg: Segment, widths: Widths, stage: Stage = STAGED) -> bool:
+    """Whether K2r's first layer dequantises an int8 staging array (a
+    later segment reading int8; ``scale_operands``' deq)."""
+    return widths != FP32_WIDTHS and seg.start > 0 and _in_out_widths(seg, widths, stage)[0] == 1
 
 
 def _in_out_widths(seg: Segment, widths: Widths, stage: Stage = STAGED) -> tuple[int, int]:
@@ -344,26 +443,58 @@ def _ntiles(seg: Segment, vol):
     return _prod3(tuple(-(-v // t) for v, t in zip(vol, seg.tile)))
 
 
-def _segment_issued_macs(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS):
+def _segment_issued_macs(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS, stage: Stage = STAGED):
     """Multiply-adds as K2's warps issue them for one segment: per layer
     the region cut into items of M rows d apart x one chunk of 32 R voxels
     (rows and lanes past the region included), dealt to the block's 4
     warps in rounds (idle warps of the last round included), then the
-    fused head over the last layer's items. K2r deals the same items, its
-    first layer at ``ISSUE_COST_LP``. Accepts numpy tiles."""
+    fused head over the last layer's items. At reduced ``widths``, K2r's
+    padded tensor-core MACs (``_lp_segment_work``). Accepts numpy
+    tiles."""
+    if widths != FP32_WIDTHS:
+        return _lp_segment_work(seg, vol, batch, widths, stage)[0]
     c = seg.channels
     _, m, _, x_max = _blocking(c)
     per_block = 0
     for i, (s, d) in enumerate(zip(_layer_sizes(seg.tile, seg.dilations)[1:], seg.dilations)):
         items = s[0] * _row_groups(s[1], d, m) * -(-s[2] // x_max)
         slots = -(-items // WARPS) * WARPS * m * x_max
-        layer = slots * 27 * (seg.cin if i == 0 else c) * c
-        if i == 0 and widths != FP32_WIDTHS:
-            layer = layer * ISSUE_COST_LP
-        per_block = per_block + layer
+        per_block = per_block + slots * 27 * (seg.cin if i == 0 else c) * c
     if seg.fuse_head:
         per_block = per_block + slots * c * seg.num_classes
     return batch * _ntiles(seg, vol) * per_block
+
+
+def _lp_segment_work(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS, stage: Stage = STAGED):
+    """(tensor-core MACs, input rows read, (output row, tap row) pairs) of
+    K2r for one segment, as csrc/megakernel_lp.cu deals its work: per
+    layer, items of up to M output rows d apart in y (only the rows inside
+    the region) x NX voxels along x (lanes past the region included), each
+    item reading 3 (rows + 2) input rows, and every pair issuing k16 steps
+    x n8 tiles x m16 tiles of m16n8k16 (2048 MACs each), the first layer's
+    twice over when it dequantises int8 staging (hi and lo weights); the
+    head one product of k16 steps x n8 tiles of classes a (row, m16 tile).
+    The items are dealt to 4 warps in rounds (idle warps of the last round
+    included). Accepts numpy tiles."""
+    c = seg.channels
+    m, mt, nt, nx = _lp_blocking(c)
+    deq = _dequantises(seg, widths, stage)
+    macs = rows = pairs = 0
+    for i, (s, d) in enumerate(zip(_layer_sizes(seg.tile, seg.dilations)[1:], seg.dilations)):
+        ks = _ksteps(seg.cin if i == 0 else c)
+        groups = _row_groups(s[1], d, m)
+        nch = -(-s[2] // nx)
+        items = s[0] * groups * nch
+        deal = -(-items // WARPS) * WARPS / items  # the last round's idle warps
+        layer_pairs = deal * s[0] * s[1] * nch * 9
+        macs = macs + layer_pairs * ks * nt * mt * (2 if (i == 0 and deq) else 1) * 2048
+        rows = rows + deal * s[0] * nch * 3 * (s[1] + 2 * groups)
+        pairs = pairs + layer_pairs
+    if seg.fuse_head:
+        macs = macs + seg.tile[0] * seg.tile[1] * -(-seg.tile[2] // nx) * mt * -(-nt // 2) * -(
+            -seg.num_classes // 8) * 2048
+    n = batch * _ntiles(seg, vol)
+    return n * macs, n * rows, n * pairs
 
 
 def _blocks_per_sm(smem_bytes, channels: int, widths: Widths = FP32_WIDTHS):
@@ -386,13 +517,21 @@ def _wave_quantisation(blocks, per_sm):
 
 def _segment_modeled_ms(seg: Segment, vol, batch: int = 1, widths: Widths = FP32_WIDTHS, stage: Stage = STAGED):
     """Modeled device time of one segment's launch (ms): the larger of its
-    issued multiply-adds over ``FMA_PER_S`` and its device-memory bytes
+    issued multiply-adds over ``FMA_PER_S`` (K2r: its tensor-core MACs
+    over ``TC_MACS_PER_S`` or its input rows, (output row, tap row) pairs
+    and blocks at ``LP_ROW_S``, ``LP_PAIR_S`` and ``LP_BLOCK_S`` over the
+    SMs, the larger) and its device-memory bytes
     (``_segment_device_bytes``) over ``HBM_BYTES_PER_S``, times the wave
     quantisation of its blocks. The planner's DP objective. Accepts numpy
     tiles."""
-    t_ops = _segment_issued_macs(seg, vol, batch, widths) / FMA_PER_S
+    if widths == FP32_WIDTHS:
+        t_ops = _segment_issued_macs(seg, vol, batch, widths) / FMA_PER_S
+    else:
+        macs, rows, pairs = _lp_segment_work(seg, vol, batch, widths, stage)
+        blocks = batch * _ntiles(seg, vol)
+        t_ops = np.maximum(macs / TC_MACS_PER_S, (rows * LP_ROW_S + pairs * LP_PAIR_S + blocks * LP_BLOCK_S) / SMS)
     t_bytes = _segment_device_bytes(seg, vol, batch, widths, stage) / HBM_BYTES_PER_S
-    per_sm = _blocks_per_sm(_segment_smem_bytes(seg, widths), seg.channels, widths)
+    per_sm = _blocks_per_sm(_segment_smem_bytes(seg, widths, stage), seg.channels, widths)
     q = _wave_quantisation(batch * _ntiles(seg, vol), per_sm)
     return 1e3 * q * np.maximum(t_ops, t_bytes)
 
@@ -479,8 +618,13 @@ class MegakernelPlan:
     def segment_waves(self, i: int, batch: int = 1) -> float:
         """Waves of segment i's blocks on the card's SMs."""
         seg = self.segments[i]
-        per_sm = int(_blocks_per_sm(_segment_smem_bytes(seg, self.widths), seg.channels, self.widths))
+        per_sm = int(_blocks_per_sm(_segment_smem_bytes(seg, self.widths, self.stage(i)), seg.channels, self.widths))
         return self.segment_blocks(i, batch) / (SMS * per_sm)
+
+    def segment_issued_macs(self, i: int, batch: int = 1) -> float:
+        """Multiply-adds segment i's launch issues: K2's fp32 FMAs, or K2r's
+        padded tensor-core MACs (``_lp_segment_work``)."""
+        return float(_segment_issued_macs(self.segments[i], self.vol, batch, self.widths, self.stage(i)))
 
     def segment_modeled_ms(self, i: int, batch: int = 1) -> float:
         """Modeled device time of segment i's launch (ms)."""
@@ -602,7 +746,7 @@ def _dp(dils, in_channels, channels, num_classes, vol, smem_budget, batch, width
             ms = _segment_modeled_ms(seg, vol, batch, widths, stage)
             if i == 0:
                 ms = ms + _input_pad_ms(seg, vol, batch, widths)
-            cost = np.where(_segment_smem_bytes(seg, widths) <= smem_budget, ms, inf).reshape(-1)
+            cost = np.where(_segment_smem_bytes(seg, widths, stage) <= smem_budget, ms, inf).reshape(-1)
             least = float(cost.min())
             if least == inf:
                 continue
@@ -743,10 +887,10 @@ def _kernel_lp():
     global _LIB_LP
     if _LIB_LP is None:
         lib = _build.load("megakernel_lp")
-        # (x, x_int8, w, hw, vec, out, out_int8, geom, n, stream)
+        # (x, x_int8, w, hw, vec, out, out_int8, has_deq, geom, n, stream)
         for fn in (lib.repro_megakernel_segment_bf16, lib.repro_megakernel_segment_int8w):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.repro_megakernel_lp_supports.argtypes = [ctypes.c_int]
         lib.repro_megakernel_lp_supports.restype = ctypes.c_int
@@ -756,6 +900,17 @@ def _kernel_lp():
         lib.repro_megakernel_lp_error_string.restype = ctypes.c_char_p
         _LIB_LP = lib
     return _LIB_LP
+
+
+def deq_weight_split(w: torch.Tensor, deq: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2r's first-layer weights where it dequantises int8 staging, as
+    csrc/megakernel_lp.cu stages them: w (3, 3, 3, cin, C), bf16 or int8
+    codes, times ``deq`` (cin,) in fp32, split into bf16 hi = rn(w deq) and
+    lo = rn(w deq - hi). hi + lo is w deq within 2^-16 relative, and an
+    int8 code times each is exact in the bf16 tensor cores: two mmas."""
+    wd = w.float() * deq.float()[:, None]
+    hi = wd.to(torch.bfloat16)
+    return hi, (wd - hi.float()).to(torch.bfloat16)
 
 
 def scale_operands(pln: MegakernelPlan, i: int) -> tuple[bool, bool]:
@@ -820,27 +975,95 @@ def blocks_per_sm(seg: Segment, widths: Widths = FP32_WIDTHS, stage: Stage = STA
     ``widths``, its input staging array as ``stage`` says; the runtime's
     occupancy calculator), against which ``_blocks_per_sm`` models it. On
     the card only."""
-    smem = int(_segment_smem_bytes(seg, widths))
+    smem = int(_segment_smem_bytes(seg, widths, stage))
     if widths == FP32_WIDTHS:
         return int(_kernel().repro_megakernel_blocks_per_sm(seg.channels, seg.cin, smem))
     x_int8 = _in_out_widths(seg, widths, stage)[0] == 1
     return int(_kernel_lp().repro_megakernel_lp_blocks_per_sm(seg.channels, int(x_int8), smem))
 
 
-def geometry(x_shape: tuple, pln: MegakernelPlan, i: int, z_bounds=None) -> list[int]:
+def band_rows(pln: MegakernelPlan, i: int, band=None) -> tuple[int, int]:
+    """The output rows ``[lo, hi)`` segment ``i`` of ``pln`` writes: all
+    of its tile-padded region, or ``band`` (host ints) clipped to it."""
+    return ref.clip_band(pln.padded(pln.segments[i])[0], band)
+
+
+def segment_bands(pln: MegakernelPlan, rows, z_bounds=None) -> list[tuple[int, int]]:
+    """The output rows each segment of ``pln`` must write so that the last
+    one's rows ``[lo, hi)`` are right: segment j's band is ``[lo - R_j, hi
+    + R_j)``, R_j the dilations of the segments after it, intersected with
+    the valid Z interval (``ref.z_interval``). Segment j + 1 reads exactly
+    segment j's band, so no row outside it is ever read."""
+    if len(rows) != 2:
+        raise ValueError(f"rows must be (lo, hi), got {rows!r}")
+    z_lo, z_hi = ref.z_interval(pln.vol[0], z_bounds)
+    after = sum(seg.halo for seg in pln.segments)
+    bands = []
+    for seg in pln.segments:
+        after -= seg.halo
+        lo, hi = max(int(rows[0]) - after, z_lo), min(int(rows[1]) + after, z_hi)
+        bands.append((lo, max(hi, lo)))
+    return bands
+
+
+def band_rows_layers(pln: MegakernelPlan, bands=None) -> int:
+    """Rows times layers a forward of ``pln`` computes: each segment's band
+    (``segment_bands``; its whole tile-padded region without one) times its
+    layers."""
+    return sum((hi - lo) * len(seg.dilations) for seg, (lo, hi) in zip(
+        pln.segments, bands or [band_rows(pln, i) for i in range(len(pln.segments))]))
+
+
+def geometry(x_shape: tuple, pln: MegakernelPlan, i: int, z_bounds=None, band=None) -> list[int]:
     """The geometry array K2's (K2r's) entry point takes for segment ``i``
     of ``pln`` on an input staging array of shape ``x_shape``: B, cin, C,
     k, classes (0 without the head), vol, tile, the input's dims and halo,
     the output's dims and halo, the shared-memory layout (params, ping,
     pong, ring floats; the kernel checks it against its own), the valid Z
     interval [z_lo, z_hi) (``ref.z_interval``: the volume's, or its
-    intersection with ``z_bounds``; K2z), then the dilations."""
+    intersection with ``z_bounds``; K2z), the output rows written
+    [band_lo, band_hi) (``band_rows``), then the dilations."""
     seg = pln.segments[i]
     return [
         x_shape[0], seg.cin, seg.channels, len(seg.dilations), seg.num_classes if seg.fuse_head else 0,
         *pln.vol, *seg.tile, *x_shape[1:4], seg.halo, *pln.out_dims(i), pln.out_halo(i),
-        *(int(v) for v in _smem_layout(seg, pln.widths)), *ref.z_interval(pln.vol[0], z_bounds), *seg.dilations,
+        *(int(v) for v in _smem_layout(seg, pln.widths, pln.stage(i))), *ref.z_interval(pln.vol[0], z_bounds),
+        *band_rows(pln, i, band), *seg.dilations,
     ]
+
+
+def staging_strides(shape: tuple, dtype: torch.dtype) -> tuple:
+    """Element strides of a K2r staging array of ``shape`` (B, Z, Y, X, C),
+    channels-last (csrc/megakernel_lp.cu). A bf16 array of several
+    channels holds each position at a multiple of 8 channels (16 bytes a
+    group; C = 5: 16 bytes a position), so that K2r copies a position's
+    channels straight into its A operands' layout, the pad zero-filled on
+    the way and never read; any other (int8, or one channel) is packed
+    with each x row's pitch padded to a multiple of 16 bytes, so that
+    every row starts 16-byte aligned and K2r copies it in 16-byte
+    granules. The pads are never written as data or read."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    if dtype == torch.bfloat16 and shape[4] > 1:
+        pos = -(-shape[4] // 8) * 8
+        pitch = shape[3] * pos
+    else:
+        pos = shape[4]
+        pitch = -(-shape[3] * shape[4] * es // 16) * 16 // es
+    return (shape[1] * shape[2] * pitch, shape[2] * pitch, pitch, pos, 1)
+
+
+def staging_empty(shape: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """An uninitialised K2r staging array of logical ``shape`` with the
+    layout of ``staging_strides`` (a view of a flat buffer)."""
+    strides = staging_strides(shape, dtype)
+    flat = torch.empty(shape[0] * strides[0], dtype=dtype, device=device)
+    return flat.as_strided(tuple(shape), strides)
+
+
+def is_staging(t: torch.Tensor) -> bool:
+    """Whether ``t`` has ``staging_strides``' layout and a 16-byte aligned
+    start, as K2r reads and writes staging arrays."""
+    return t.ndim == 5 and t.stride() == staging_strides(tuple(t.shape), t.dtype) and t.data_ptr() % 16 == 0
 
 
 def run_segment(
@@ -852,6 +1075,7 @@ def run_segment(
     deq: Optional[torch.Tensor] = None,
     qscale: Optional[torch.Tensor] = None,
     z_bounds: Optional[tuple[int, int]] = None,
+    band: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Segment ``i`` of ``pln`` on the staging array ``x``: (B, Z, Y, X,
     cin) holding the volume at offset ``segments[i].halo`` (its border is
@@ -867,7 +1091,9 @@ def run_segment(
     (bf16 logits), bf16 or int8 weights, fp32 bias, scale and offset, a
     bf16 head weight; ``deq`` (cin,) fp32 scales its int8 input staging
     and ``qscale`` (C,) fp32 quantises its int8 output, exactly when
-    ``scale_operands`` says.
+    ``scale_operands`` says. On the card a reduced plan's output staging
+    array (not the head's logits) has ``staging_strides``' layout; the CPU
+    path returns plain contiguous arrays.
 
     ``z_bounds`` (host ints ``(z_lo, z_hi)``; K2z, and K2r-z on a reduced
     plan) narrows the valid Z interval to its intersection with
@@ -875,15 +1101,23 @@ def run_segment(
     layer's output rows but the last's are zeroed, as outside the volume.
     The same kernels, the bounds a runtime value: no rebuild per window.
 
-    On CUDA every tensor must be contiguous on x's device, the width one
-    the kernel is instantiated for (5, 10, 18, 21), and the segment's
-    shared memory within one block."""
+    ``band`` (host ints ``(lo, hi)``, ``band_rows``) writes only the
+    output rows in ``[lo, hi)``, computed from the input rows within the
+    segment's halo of them; the other output rows are left unwritten and
+    the other input rows are never read.
+
+    On CUDA every tensor must be contiguous on x's device (a reduced
+    plan's staging array with ``staging_strides``' layout, 16-byte
+    aligned), the width one the kernel is instantiated for (5, 10, 18,
+    21), and the segment's shared memory within one block."""
     global launches, reduced_launches, z_launches
     _check_operands(x, pln, i, layers, head, deq, qscale)
     if z_bounds is not None and len(z_bounds) != 2:
         raise ValueError(f"z_bounds must be (z_lo, z_hi), got {z_bounds!r}")
+    if band is not None and len(band) != 2:
+        raise ValueError(f"band must be (lo, hi), got {band!r}")
     if x.device.type == "cpu":
-        return ref.megakernel_segment(x, pln, i, layers, head, deq, qscale, z_bounds)
+        return ref.megakernel_segment(x, pln, i, layers, head, deq, qscale, z_bounds, band)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     reduced = pln.widths != FP32_WIDTHS
@@ -893,6 +1127,7 @@ def run_segment(
             raise TypeError(f"the CUDA kernel takes float32 only, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
+    for t in tensors[1:] if reduced else tensors:
         if not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous tensors only")
     seg = pln.segments[i]
@@ -900,14 +1135,21 @@ def run_segment(
     supports = lib.repro_megakernel_lp_supports if reduced else lib.repro_megakernel_supports
     if not supports(seg.channels):
         raise ValueError(f"the CUDA kernel is not instantiated for Cout={seg.channels}")
+    if reduced and not is_staging(x):
+        raise ValueError("K2r takes its staging array contiguous but for its x-row pitch, padded to 16 bytes, and "
+                         "16-byte aligned (megakernel.staging_empty)")
     if len(seg.dilations) > MAX_LAYERS:
         raise ValueError(f"a segment holds at most {MAX_LAYERS} layers, got {len(seg.dilations)}")
-    smem = _segment_smem_bytes(seg, pln.widths)
+    smem = _segment_smem_bytes(seg, pln.widths, pln.stage(i))
     if smem > SMEM_BUDGET:
         raise ValueError(f"segment {i} needs {smem} bytes of shared memory, over the {SMEM_BUDGET} one block can use")
     _, out_dtype = pln.dtypes(i)
-    out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=out_dtype, device=x.device)
-    geom = geometry(tuple(x.shape), pln, i, z_bounds)
+    shape = (x.shape[0],) + pln.out_dims(i) + (seg.cout,)
+    if reduced and not seg.fuse_head:
+        out = staging_empty(shape, out_dtype, x.device)
+    else:
+        out = torch.empty(shape, dtype=out_dtype, device=x.device)
+    geom = geometry(tuple(x.shape), pln, i, z_bounds, band)
     geom_c = (ctypes.c_int * len(geom))(*geom)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if not reduced:
@@ -935,7 +1177,7 @@ def run_segment(
     entry = lib.repro_megakernel_segment_int8w if w.dtype == torch.int8 else lib.repro_megakernel_segment_bf16
     err = entry(
         x.data_ptr(), int(x.dtype == torch.int8), w.data_ptr(), None if hw is None else hw.data_ptr(),
-        vec.data_ptr(), out.data_ptr(), int(out.dtype == torch.int8), geom_c, len(geom), stream,
+        vec.data_ptr(), out.data_ptr(), int(out.dtype == torch.int8), int(deq is not None), geom_c, len(geom), stream,
     )
     if err != 0:
         raise RuntimeError(f"reduced megakernel launch failed: {lib.repro_megakernel_lp_error_string(err).decode()}")

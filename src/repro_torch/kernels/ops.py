@@ -108,6 +108,7 @@ def meshnet_apply_megakernel(
     precision: str = "fp32",
     staging_scales: Optional[list] = None,
     z_bounds: Optional[tuple[int, int]] = None,
+    rows: Optional[tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Depth-first MeshNet forward (== meshnet.apply, eval mode): one K2
     launch per segment of ``pln`` (planned here when not given), the head
@@ -133,7 +134,14 @@ def meshnet_apply_megakernel(
     zeroed after every layer and on the staged input, as positions outside
     the volume are (K2z and K2r-z, one launch a segment). The sharded
     executor's slab windows pass the true volume's extent here
-    (core/spatial_shard.py); the plan is the window's."""
+    (core/spatial_shard.py); the plan is the window's.
+
+    ``rows``, a host pair ``(lo, hi)``, asks only for the output rows in
+    ``[lo, hi)``: segment j computes the band ``[lo - R_j, hi + R_j)``
+    intersected with the valid interval, R_j the dilations of the segments
+    after it (exactly the rows segment j + 1 reads), and the rows of the
+    result outside ``[lo, hi)`` are left unwritten (the sharded windows
+    keep only their slab's rows)."""
     if x.ndim == 4:
         x = x[..., None]
     B, D, H, W, _ = x.shape
@@ -161,8 +169,14 @@ def meshnet_apply_megakernel(
         raise ValueError(f"plan is for widths {pln.widths}, not precision {precision!r}'s")
     first = pln.segments[0]
     h = first.halo
-    pad = sum(((h, h + p - v) for p, v in zip(pln.padded(first)[::-1], vol[::-1])), ())
-    act = F.pad(x, (0, 0) + pad)
+    if pln.widths == mega_kernel.FP32_WIDTHS or x.device.type != "cuda":
+        pad = sum(((h, h + p - v) for p, v in zip(pln.padded(first)[::-1], vol[::-1])), ())
+        act = F.pad(x, (0, 0) + pad)
+    else:  # K2r on the card: its staging layout (megakernel.staging_empty); the border is never read
+        act = mega_kernel.staging_empty((B,) + tuple(p + 2 * h for p in pln.padded(first)) + (x.shape[-1],),
+                                        x.dtype, x.device)
+        act[:, h : h + D, h : h + H, h : h + W] = x
+    bands = mega_kernel.segment_bands(pln, rows, z_bounds) if rows is not None else [None] * len(pln.segments)
     for i, seg in enumerate(pln.segments):
         layers, head = megakernel_operands(params, cfg, seg, precision)
         deq, qscale = mega_kernel.scale_operands(pln, i)
@@ -170,7 +184,7 @@ def meshnet_apply_megakernel(
             act, pln, i, layers, head,
             staging_scales[seg.start - 1] if deq else None,
             staging_scales[seg.start + len(seg.dilations) - 1] if qscale else None,
-            z_bounds,
+            z_bounds, bands[i],
         )
     return act[:, :D, :H, :W, :]
 

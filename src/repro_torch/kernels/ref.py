@@ -87,18 +87,18 @@ def z_interval(depth: int, z_bounds=None) -> tuple[int, int]:
     return lo, max(min(int(z_bounds[1]), depth), lo)
 
 
-def _zmask(a: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """``a`` (B, Z, ...) with every Z row outside [lo, hi) selected to 0
-    (never multiplied: the value may be anything)."""
-    if lo == 0 and hi >= a.shape[1]:
-        return a
-    keep = torch.zeros(a.shape[1], dtype=torch.bool, device=a.device)
-    keep[lo:hi] = True
-    return torch.where(keep.view((1, -1) + (1,) * (a.ndim - 2)), a, torch.zeros((), dtype=a.dtype, device=a.device))
+def clip_band(rows: int, band=None) -> tuple[int, int]:
+    """The output rows ``[lo, hi)`` of a segment whose tile-padded region
+    is ``rows`` deep: all of them, or ``band`` (host ints) clipped to
+    them."""
+    if band is None:
+        return 0, rows
+    lo = min(max(int(band[0]), 0), rows)
+    return lo, max(min(int(band[1]), rows), lo)
 
 
 def megakernel_segment(
-    x: torch.Tensor, pln, i: int, layers, head=None, deq=None, qscale=None, z_bounds=None
+    x: torch.Tensor, pln, i: int, layers, head=None, deq=None, qscale=None, z_bounds=None, band=None
 ) -> torch.Tensor:
     """Segment ``i`` of a megakernel plan, the same staging arrays in and
     out as K2 and K2r (``kernels/megakernel.py::run_segment``), computed
@@ -122,26 +122,42 @@ def megakernel_segment(
     ``z_bounds`` (K2z, K2r-z) narrows the valid Z interval to its
     intersection with the volume's (``z_interval``): the input's rows and
     every layer's output rows but the last's outside it are selected to
-    zero, as positions outside the volume are."""
+    zero, as positions outside the volume are.
+
+    ``band`` (``clip_band``; by default all of the tile-padded rows)
+    computes only the output rows in ``[lo, hi)``, from the input rows
+    within the segment's halo of them (valid-Z convs over that slab, the
+    rows outside the volume and the valid interval zero); the other output
+    rows are left unwritten and the other input rows are never read."""
     seg = pln.segments[i]
     h = seg.halo
     vol = pln.vol
     padded = pln.padded(seg)
     reduced = x.dtype != torch.float32
     lo, hi = z_interval(vol[0], z_bounds)
-    act = x[:, h : h + vol[0], h : h + vol[1], h : h + vol[2], :]
+    b_lo, b_hi = clip_band(padded[0], band)
+    # the band grown by the halo: its rows inside [lo, hi), zeros elsewhere
+    r0, r1 = b_lo - h, b_hi + h
+    act = torch.zeros((x.shape[0], r1 - r0) + tuple(vol[1:]) + (x.shape[-1],), dtype=x.dtype, device=x.device)
+    a, c = max(r0, lo), min(r1, hi)
+    if a < c:
+        act[:, a - r0 : c - r0] = x[:, h + a : h + c, h : h + vol[1], h : h + vol[2], :]
     if reduced:
         act = act.float() if deq is None else act.float() * deq
-    act = _zmask(act, lo, hi)
     last = len(layers) - 1
     for li, ((w, b, scale, offset), d) in enumerate(zip(layers, seg.dilations)):
         if li == last:
-            act = F.pad(act, (0, 0) + sum(((0, p - v) for p, v in zip(padded[::-1], vol[::-1])), ()))
-        act = dilated_conv3d(act, w, b, dilation=d, scale=scale, offset=offset, fuse_affine=True)
+            act = F.pad(act, (0, 0) + sum(((0, p - v) for p, v in zip(padded[:0:-1], vol[:0:-1])), ()))
+            a, c = r0 + d, r1 - d
+        else:  # only the output rows inside [lo, hi) are computed; the others are zeros
+            a = min(max(r0 + d, lo), r1 - d)
+            c = max(min(r1 - d, hi), a)
+        out = dilated_conv3d(act[:, a - d - r0 : c + d - r0], w, b, dilation=d, scale=scale, offset=offset,
+                             fuse_affine=True, z_same=False)
         if reduced and not (li == last and qscale is not None):
-            act = act.to(torch.bfloat16).float()
-        if li < last:
-            act = _zmask(act, lo, hi)
+            out = out.to(torch.bfloat16).float()
+        r0, r1 = r0 + d, r1 - d
+        act = F.pad(out, (0, 0, 0, 0, 0, 0, a - r0, r1 - c))
     if reduced:
         if qscale is not None:
             act = torch.clamp(torch.round(torch.div(act, qscale)), -127, 127).to(torch.int8)
@@ -153,7 +169,7 @@ def megakernel_segment(
         act = torch.matmul(act, head[0]) + head[1]
     o = pln.out_halo(i)
     out = torch.empty((x.shape[0],) + pln.out_dims(i) + (seg.cout,), dtype=act.dtype, device=x.device)
-    out[:, o : o + padded[0], o : o + padded[1], o : o + padded[2], :] = act
+    out[:, o + b_lo : o + b_hi, o : o + padded[1], o : o + padded[2], :] = act
     return out
 
 

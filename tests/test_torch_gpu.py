@@ -758,8 +758,15 @@ def _lp_gap(got, expect):
 
 def _poisoned(t, region):
     """A copy of staging array t whose border is poison no code writes:
-    -128 for int8 (the codes stop at -127), NaN for bf16."""
-    out = torch.full_like(t, -128) if t.dtype == torch.int8 else torch.full_like(t, float("nan"))
+    -128 for int8 (the codes stop at -127), NaN for bf16 and fp32. A bf16
+    or int8 copy has K2r's layout (mk.staging_empty), the pad of each x
+    row's pitch poisoned too."""
+    poison = -128 if t.dtype == torch.int8 else float("nan")
+    if t.dtype == torch.float32:
+        out = torch.full_like(t, poison)
+    else:
+        out = mk.staging_empty(tuple(t.shape), t.dtype, t.device)
+        out.as_strided((t.shape[0] * out.stride(0),), (1,)).fill_(poison)
     out[region] = t[region]
     return out
 
@@ -775,8 +782,8 @@ def _reduced_segments(params, cfg, x, pln, precision, scales):
     x = quantize.quantize_input(x) if precision == "int8w" else x.to(torch.bfloat16)
     act = torch.zeros((x.shape[0],) + tuple(p + 2 * h for p in pln.padded(first)) + (x.shape[-1],), dtype=x.dtype,
                       device=x.device)
-    act = _poisoned(act, (slice(None),) + tuple(slice(h, h + v) for v in pln.vol) + (slice(None),))
     act[:, h : h + pln.vol[0], h : h + pln.vol[1], h : h + pln.vol[2]] = x
+    act = _poisoned(act, (slice(None),) + tuple(slice(h, h + v) for v in pln.vol) + (slice(None),))
     for i, seg in enumerate(pln.segments):
         layers, head = ops.megakernel_operands(params, cfg, seg, precision)
         deq, qs = mk.scale_operands(pln, i)
@@ -786,7 +793,7 @@ def _reduced_segments(params, cfg, x, pln, precision, scales):
         act = _poisoned(mk.run_segment(act, pln, i, *operands), _written(pln, i))
 
 
-@pytest.mark.parametrize("policy", ["bf16", "int8w", "int8w_no_staging"])
+@pytest.mark.parametrize("policy", ["bf16", "int8w", "int8w_no_staging", "int8w_every_boundary"])
 @pytest.mark.parametrize(
     "channels,classes,dilations,shape,budget,cin",
     [
@@ -809,18 +816,23 @@ def _reduced_segments(params, cfg, x, pln, precision, scales):
 )
 def test_reduced_megakernel_segments_match_plain_version(cuda, channels, classes, dilations, shape, budget, cin, policy):
     """K2r segment by segment against its plain version on the same staging
-    arrays, their borders poisoned: bf16, int8w with int8 staging, int8w
-    without (bf16 staging); the planner's plans and plans forced to
-    multi-layer segments by small budgets."""
+    arrays, their borders and the pads of their x-row pitches poisoned:
+    bf16, int8w with int8 staging, int8w without (bf16 staging), and int8w
+    with int8 staging at every boundary (every later segment dequantises
+    its int8 input: the hi and lo weights of deq); the planner's plans and
+    plans forced to multi-layer segments by small budgets."""
     from repro_torch.kernels import quantize
 
     precision = policy[:5] if policy != "bf16" else "bf16"
-    staging = policy == "int8w"
+    staging = policy in ("int8w", "int8w_every_boundary")
     cfg = meshnet.MeshNetConfig(in_channels=cin, channels=channels, num_classes=classes, dilations=dilations)
     params = quantize.prepare_params(_params_with_bn(cfg, channels + classes, cuda), cfg, precision)
     scales = quantize.staging_scales_from_bn(params, cfg) if staging else None
     pln = mk.plan_for_config(cfg, shape[1:], smem_budget=budget, precision=precision, int8_staging=staging,
                              batch=shape[0])
+    if policy == "int8w_every_boundary":
+        pln = dataclasses.replace(pln, int8_at=None)
+        assert all(mk.scale_operands(pln, i)[0] for i in range(1, len(pln.segments)))
     x = torch.rand(shape + (cin,), generator=torch.Generator().manual_seed(1)).to(cuda)
     for i, act, operands in _reduced_segments(params, cfg, x, pln, precision, scales):
         before = (mk.launches, mk.reduced_launches)
@@ -1031,6 +1043,43 @@ def test_sharded_family_on_one_card(cuda, inner, precision):
         assert err <= (1e-4 if precision == "fp32" else 2e-2) * top, (n, err, top)
         if precision == "fp32":
             assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8w"])
+def test_banded_windows_are_bit_equal_on_the_kept_rows(cuda, precision):
+    """The sharded megakernel inner's windows (n = 2, 4, 8 slabs of a
+    48-row volume) with ``rows`` (each segment only the band its successors
+    read; K2z, K2r-z) against the same windows without it: the kept rows
+    bit-equal, one launch a segment either way; and the sharded forward
+    within 1e-4 (fp32) of the single-device one."""
+    from repro_torch.core import spatial_shard
+    from repro_torch.kernels import quantize
+
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = quantize.prepare_params(_params_with_bn(cfg, 31, cuda), cfg, precision)
+    x = torch.rand((1, 48, 40, 36, 1), generator=torch.Generator().manual_seed(7)).to(cuda)
+    if precision == "int8w":
+        x = quantize.quantize_input(x)
+    elif precision == "bf16":
+        x = x.to(torch.bfloat16)
+    radius = sum(cfg.dilations)
+    for n in (2, 4, 8):
+        dloc = 48 // n
+        windows = spatial_shard.halo_exchange_z(list(x.split(dloc, 1)), radius)
+        for i, window in enumerate(windows):
+            bounds = spatial_shard.window_z_bounds(i, dloc, n, radius)
+            segments = len(mk.plan_for_config(cfg, tuple(window.shape[1:4]), precision=precision).segments)
+            before = mk.z_launches
+            whole = ops.meshnet_apply_megakernel(params, window, cfg, precision=precision, z_bounds=bounds)
+            banded = ops.meshnet_apply_megakernel(params, window, cfg, precision=precision, z_bounds=bounds,
+                                                  rows=(radius, radius + dloc))
+            torch.cuda.synchronize()
+            assert mk.z_launches - before == 2 * segments
+            assert torch.equal(banded[:, radius : radius + dloc], whole[:, radius : radius + dloc]), (n, i)
+    if precision == "fp32":
+        want = executors.apply("cuda_megakernel", params, x[..., 0], cfg)
+        got = spatial_shard.sharded_executor_apply("cuda_megakernel", params, x[..., 0], cfg, devices=[cuda] * 4)
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 def test_pipeline_shard_devices_on_the_card(cuda):

@@ -30,23 +30,34 @@ FULL_SCHEDULE = (1, 2, 4, 8, 16, 8, 4, 2, 1)
 MEGA_ATOL = 1e-4  # megakernel logits (tests/test_megakernel.py)
 SEGMENT_ATOL = 1e-5  # one segment, the same arithmetic in another order
 PAPER_VOL = (256, 256, 256)
-#: the tiles of the one-layer segments that the time-only planner chose at
-#: fp32 and bf16 (one list when both policies chose the same), by (model,
-#: volume, batch); "small" is gwm_light at dilations (1, 2, 4).
+#: the tiles of the one-layer segments that the time-priced planner chooses,
+#: by (model, volume, batch) and policy; "small" is gwm_light at dilations
+#: (1, 2, 4). fp32: K2's plans, as the first time-only planner chose them.
+#: bf16: K2r's, priced by its tensor-core kernel's input rows
+#: (``_lp_segment_work``; re-pinned when that kernel replaced the CUDA-core
+#: one: its layout and time model moved them).
 _T16 = (16, 16, 256)
+_LP256 = [(16, 32, 64)] * 9
 PARENT_PLANS = {
     ("gwm_light", PAPER_VOL, 1): {"fp32": [(3, 4, 256)] + [_T16] * 3 + [(8, 32, 256)] + [_T16] * 4,
-                                  "bf16": [_T16] * 4 + [(8, 32, 256)] + [_T16] * 4},
-    ("gwm_large", PAPER_VOL, 1): [(2, 4, 128), (6, 4, 128), (3, 8, 128)] + [(16, 32, 128)] * 3 + [
+                                  "bf16": _LP256},
+    ("gwm_large", PAPER_VOL, 1): {"fp32": [(2, 4, 128), (6, 4, 128), (3, 8, 128)] + [(16, 32, 128)] * 3 + [
         (3, 8, 128), (6, 4, 128), (4, 6, 128)],
-    ("gwm_light", (156, 256, 256), 1): [(2, 4, 256)] * 2 + [(10, 16, 256)] * 2 + [(5, 32, 256)] + [
+                                  "bf16": [(8, 128, 32), (4, 256, 32)] * 4 + [(8, 128, 32)]},
+    ("gwm_light", (156, 256, 256), 1): {"fp32": [(2, 4, 256)] * 2 + [(10, 16, 256)] * 2 + [(5, 32, 256)] + [
         (10, 16, 256)] * 2 + [(2, 4, 256)] * 2,
-    ("gwm_light", (10, 12, 14), 1): [(2, 4, 14)] * 2 + [(2, 2, 14)] * 5 + [(2, 4, 14)] * 2,
-    ("gwm_light", (9, 17, 13), 2): [(3, 2, 14), (2, 4, 14)] + [(2, 2, 14)] * 5 + [(2, 4, 14), (3, 2, 14)],
-    ("gwm_light", (16, 8, 8), 1): [(2, 4, 8)] * 2 + [(2, 2, 8)] * 5 + [(2, 4, 8)] * 2,
-    ("small", (16, 8, 8), 1): [(2, 4, 8), (2, 4, 8), (2, 2, 8)],
-    ("small", (30, 8, 8), 1): [(2, 4, 8), (2, 4, 8), (2, 2, 8)],
-    ("small", (10, 12, 14), 1): [(2, 4, 14), (2, 4, 14), (2, 2, 14)],
+                                        "bf16": [(4, 20, 256)] + [(20, 16, 64)] * 3 + [(10, 32, 64)] + [
+                                            (20, 16, 64)] * 4},
+    ("gwm_light", (10, 12, 14), 1): {"fp32": [(2, 4, 14)] * 2 + [(2, 2, 14)] * 5 + [(2, 4, 14)] * 2,
+                                     "bf16": [(2, 3, 14)] + [(2, 2, 14)] * 7 + [(2, 3, 14)]},
+    ("gwm_light", (9, 17, 13), 2): {"fp32": [(3, 2, 14), (2, 4, 14)] + [(2, 2, 14)] * 5 + [(2, 4, 14), (3, 2, 14)],
+                                    "bf16": [(2, 3, 14)] + [(2, 2, 14)] * 7 + [(2, 3, 14)]},
+    ("gwm_light", (16, 8, 8), 1): {"fp32": [(2, 4, 8)] * 2 + [(2, 2, 8)] * 5 + [(2, 4, 8)] * 2,
+                                   "bf16": [(2, 3, 8)] + [(2, 2, 8)] * 7 + [(2, 3, 8)]},
+    ("small", (16, 8, 8), 1): {"fp32": [(2, 4, 8), (2, 4, 8), (2, 2, 8)], "bf16": [(2, 3, 8), (2, 2, 8), (2, 2, 8)]},
+    ("small", (30, 8, 8), 1): {"fp32": [(2, 4, 8), (2, 4, 8), (2, 2, 8)], "bf16": [(2, 3, 8), (2, 2, 8), (2, 2, 8)]},
+    ("small", (10, 12, 14), 1): {"fp32": [(2, 4, 14), (2, 4, 14), (2, 2, 14)],
+                                 "bf16": [(2, 3, 14), (2, 2, 14), (2, 2, 14)]},
 }
 
 
@@ -312,7 +323,7 @@ class TestPlanner:
         cfg = meshnet.MeshNetConfig(channels=5, num_classes=3, dilations=(1, 2, 4)) if name == "small" else (
             meshnet.PAPER_MODELS[name])
         pln = mk.plan_for_config(cfg, vol, precision=precision, batch=batch)
-        want = PARENT_PLANS[case][precision] if isinstance(PARENT_PLANS[case], dict) else PARENT_PLANS[case]
+        want = PARENT_PLANS[case][precision]
         assert [(s.start, len(s.dilations), s.tile) for s in pln.segments] == [
             (i, 1, tuple(t)) for i, t in enumerate(want)]
         assert pln.crossings == 0

@@ -196,21 +196,40 @@ def test_plan_widths_are_the_references(precision, staging):
 
 
 def test_reduced_layout_is_hand_counted():
-    # K2r: the fp32-widened weights, vectors and head as K2's, then the
-    # dequant and quantisation scales (cin + C, rounded up to 4); the hidden
-    # activations as fp32; no ring (its first layer reads device memory)
+    # K2r (csrc/megakernel_lp.cu): 16 zero bytes; per layer its bf16 B
+    # fragments (9 tap rows x k16 steps x n8 tiles x 256 bytes; cin 1 or 5
+    # is one group of 8 channels, 3 x taps -> 2 k16 steps), its A-offset
+    # table (8 bytes a step -> 16) and bias, scale, offset (15 floats -> 64
+    # bytes); the head's fragments (1 k16 step x 1 n8 tile) and bias (12 ->
+    # 16 bytes); deq (4 -> 16) and qscale (20 -> 32)
     seg = mk.Segment(0, (1, 2), 1, 5, (4, 4, 8), True, 3)
-    params = 27 * 1 * 8 + 16 + 27 * 5 * 8 + 16 + 20
-    ping = (4 + 4) * (4 + 4) * (8 + 4) * 5
+    layer = 9 * 2 * 1 * 256 + 16 + 64
+    params = 16 + 2 * layer + 256 + 16 + 16 + 32
+    # layer 0's output (the tile grown by 2 a side) in the A layout, 16 bytes a position
+    ping = (4 + 4) * (4 + 4) * (8 + 4) * 16
+    # a warp's ring: 3 packed spans of the first layer's 12 + 2 x 1 positions
+    # of one channel (28 -> 32 bytes, + 32), its A buffer (14 positions of
+    # 16 bytes) and the head's row buffer (8 voxels x 3 bf16 logits, 48 + 16)
+    ring = 4 * (3 * (32 + 32) + 14 * 16 + 64)
     for precision in ("bf16", "int8w"):
         widths = mk.plan_widths(precision)
-        assert mk._smem_layout(seg, widths) == (params + 8, ping, 0, 0)
-        assert mk._segment_smem_bytes(seg, widths) == 4 * (params + 8 + ping)
-    assert mk._smem_layout(seg) == (params, ping, 0, 4 * 2 * (16 + 4))  # K2's, with its ring
+        assert mk._smem_layout(seg, widths) == (params // 4, ping // 4, 0, ring // 4)
+        assert mk._segment_smem_bytes(seg, widths) == params + ping + ring == 23_920
+    assert mk._smem_layout(seg) == (27 * 1 * 8 + 16 + 27 * 5 * 8 + 16 + 20, (4 + 4) * (4 + 4) * (8 + 4) * 5, 0,
+                                    4 * 2 * (16 + 4))  # K2's, fp32
+    # three 21 -> 21 layers: 3 groups a position (48 bytes), 5 k16 steps, 3 n8
+    # tiles; 63 vector floats -> 256 bytes, scales 84 -> 96 each; layer 0's
+    # output 6^3 and layer 1's 4^3 positions; bf16 staging of several
+    # channels copied straight into the A layout: slots of 6 + 2 positions
     wide = mk.Segment(3, (1, 1, 1), 21, 21, (2, 2, 2))
-    # three 21 -> 21 layers: weights at row stride 24, 63 vector floats -> 64,
-    # scales 42 -> 44; layer 0's output 6^3 x 21 = 4,536 floats, layer 1's 4^3 x 21
-    assert mk._smem_layout(wide, (2, 2, 2, 2)) == (3 * (27 * 21 * 24 + 64) + 44, 4536, 1344, 0)
+    layer = 9 * 5 * 3 * 256 + 48 + 256
+    assert mk._smem_layout(wide, (2, 2, 2, 2)) == ((16 + 3 * layer + 2 * 96) // 4, 6**3 * 48 // 4, 4**3 * 48 // 4,
+                                                   4 * 3 * 8 * 48 // 4)
+    # from int8 staging: the first layer's fragments twice (hi and lo of the
+    # dequantised weights), packed spans (8 x 21 -> 336 bytes, + 32) laid out
+    # in an A buffer, and the int8 output's row buffer (2 x 21 x 2 -> 96, + 16)
+    assert mk._smem_layout(wide, (2, 1, 1, 1)) == ((16 + 3 * layer + 9 * 5 * 3 * 256 + 2 * 96) // 4, 6**3 * 48 // 4,
+                                                   4**3 * 48 // 4, 4 * (3 * 368 + 8 * 48 + 112) // 4)
 
 
 @pytest.mark.parametrize("precision,staging", [("bf16", None), ("int8w", True), ("int8w", False)])
@@ -522,3 +541,63 @@ def test_calibrated_scales_tighten_staging():
     bn_err = staged_err(quantize.staging_scales_from_bn(prepared, cfg))
     assert bn_err == staged_err(None)  # the default
     assert staged_err(quantize.calibrate(params, cfg, xt)) <= bn_err + 1e-3
+
+
+def test_deq_weight_split_reconstructs_the_dequantised_weights():
+    """K2r's hi and lo bf16 weights where its first layer dequantises int8
+    staging: hi + lo is w deq (fp32) within 2^-16 relative, for int8 codes
+    and bf16 weights and staging scales over four decades."""
+    rng = np.random.default_rng(23)
+    deq = torch.from_numpy((10.0 ** rng.uniform(-3, 1, 5)).astype(np.float32))
+    for w in (torch.from_numpy(rng.integers(-127, 128, (3, 3, 3, 5, 5)).astype(np.int8)),
+              torch.from_numpy(rng.standard_normal((3, 3, 3, 5, 5)).astype(np.float32)).to(torch.bfloat16)):
+        hi, lo = mk.deq_weight_split(w, deq)
+        assert hi.dtype == lo.dtype == torch.bfloat16
+        wd = w.float() * deq[:, None]
+        err = (hi.float() + lo.float() - wd).abs()
+        assert bool((err <= 2.0**-16 * wd.abs()).all()), float((err / wd.abs().clamp_min(1e-30)).max())
+
+
+def test_staging_layout_pads_only_the_layout():
+    """K2r's staging arrays: bf16 of several channels hold 8 channels a
+    group (C = 5: 16 bytes a position), int8 or one channel are packed with
+    each x row's pitch padded to 16 bytes; the logical tensor is the same:
+    the plain path reads an array of that layout whose pads are poison
+    bit-equal to the contiguous one, and the CPU forward never allocates
+    the layout."""
+    assert mk.staging_strides((2, 10, 12, 14, 5), torch.bfloat16) == (10 * 12 * 14 * 8, 12 * 14 * 8, 14 * 8, 8, 1)
+    assert mk.staging_strides((2, 10, 12, 14, 21), torch.bfloat16) == (10 * 12 * 14 * 24, 12 * 14 * 24, 14 * 24, 24, 1)
+    assert mk.staging_strides((2, 10, 12, 14, 5), torch.int8) == (10 * 12 * 80, 12 * 80, 80, 5, 1)  # 70 -> 80 bytes
+    assert mk.staging_strides((2, 10, 12, 14, 1), torch.bfloat16) == (10 * 12 * 16, 12 * 16, 16, 1, 1)  # 28 -> 32 bytes
+    t = mk.staging_empty((2, 10, 12, 14, 5), torch.bfloat16, "cpu")
+    assert tuple(t.shape) == (2, 10, 12, 14, 5) and mk.is_staging(t) and not mk.is_staging(t.contiguous())
+    cfg = meshnet.MeshNetConfig(dilations=(1, 2))
+    port = bridge.params_from_numpy(_np_params(cfg, 29), "cpu")
+    for precision in ("bf16", "int8w"):
+        prepared = quantize.prepare_params(port, cfg, precision)
+        pln = mk.plan_for_config(cfg, (6, 7, 9), precision=precision, smem_budget=20_000)
+        assert len(pln.segments) == 2
+        seen = []
+        real = mk.run_segment
+
+        def spy(x, *a, **kw):
+            out = real(x, *a, **kw)
+            seen.append((x, a, kw, out))
+            return out
+
+        mk.run_segment = spy
+        try:
+            ops.meshnet_apply_megakernel(prepared, torch.rand((1, 6, 7, 9)), cfg, precision=precision)
+        finally:
+            mk.run_segment = real
+        assert len(seen) == 2
+        for x, a, kw, out in seen:
+            assert x.is_contiguous() and out.is_contiguous(), precision
+            laid = mk.staging_empty(tuple(x.shape), x.dtype, "cpu")
+            flat = torch.as_strided(laid, (x.shape[0] * laid.stride(0),), (1,))
+            flat.fill_(-128 if x.dtype == torch.int8 else float("nan"))  # the pads keep this poison
+            laid.copy_(x)
+            i = a[1]
+            o, padded = pln.out_halo(i), pln.padded(pln.segments[i])
+            region = (slice(None),) + tuple(slice(o, o + p) for p in padded)
+            assert torch.equal(mk.run_segment(laid, *a, **kw)[region], out[region]), (precision, i)

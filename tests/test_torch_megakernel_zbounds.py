@@ -23,7 +23,7 @@ import torch
 from repro.core import meshnet as ref_meshnet
 from repro.kernels import ops as ref_ops
 from repro_torch import bridge
-from repro_torch.core import meshnet
+from repro_torch.core import meshnet, spatial_shard
 from repro_torch.kernels import megakernel as mk
 from repro_torch.kernels import ops, quantize, ref
 
@@ -191,12 +191,19 @@ def test_geometry_carries_the_valid_interval():
     shape = (1,) + tuple(p + 2 * seg.halo for p in pln.padded(seg))
     plain = mk.geometry(shape, pln, 0)
     k = len(seg.dilations)
-    assert len(plain) == 25 + k and plain[-k:] == list(seg.dilations)
-    assert plain[23:25] == [0, 10]
+    padded = pln.padded(seg)[0]
+    # 27 ints ahead of the dilations: the valid interval, then the band of
+    # output rows written (all of the tile-padded region without one)
+    assert len(plain) == 27 + k and plain[-k:] == list(seg.dilations)
+    assert plain[23:27] == [0, 10, 0, padded]
     for bounds, want in [((3, 7), [3, 7]), ((-4, 99), [0, 10]), ((8, 2), [8, 8]), ((12, 20), [10, 10])]:
         g = mk.geometry(shape, pln, 0, bounds)
         assert g[23:25] == want, bounds
         assert g[:23] == plain[:23] and g[25:] == plain[25:]
+    for band, want in [((2, 9), [2, 9]), ((-3, 99), [0, padded]), ((7, 3), [7, 7])]:
+        g = mk.geometry(shape, pln, 0, (3, 7), band)
+        assert g[23:27] == [3, 7] + want, band
+        assert g[:23] == plain[:23] and g[27:] == plain[27:]
 
 
 def test_wrapper_rejects_malformed_bounds():
@@ -212,3 +219,63 @@ def test_zbounds_do_not_touch_the_launch_counts():
     before = (mk.launches, mk.reduced_launches, mk.z_launches)
     ops.meshnet_apply_megakernel(port, torch.from_numpy(_window(14)), cfg, z_bounds=(1, 5))
     assert (mk.launches, mk.reduced_launches, mk.z_launches) == before
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8w"])
+def test_banded_plain_path_reads_only_its_band(precision):
+    """Each segment with a band (``megakernel.segment_bands`` of the kept
+    rows) on a staging array whose rows outside the band it may read are
+    poison (NaN, or the code 100 at int8): its band's rows are bit-equal to
+    the unbanded segment's on the clean array; and the banded forward's
+    kept rows equal the unbanded forward's, bit for bit."""
+    cfg, _, _, port = _both((1, 2, 1), seed=17)
+    x = torch.from_numpy(_window(18, (1, 14, 7, 6)))
+    bounds, rows = (2, 13), (5, 9)
+    pln = mk.MegakernelPlan((mk.Segment(0, (1,), 1, 5, (4, 4, 4)), mk.Segment(1, (2, 1), 5, 5, (3, 4, 4), True, 3)),
+                            (14, 7, 6), mk.plan_widths(precision))
+    prepared = quantize.prepare_params(port, cfg, precision) if precision != "fp32" else port
+    scales = quantize.staging_scales_from_bn(prepared, cfg) if precision == "int8w" else None
+    whole = ops.meshnet_apply_megakernel(prepared, x, cfg, pln=pln, precision=precision, z_bounds=bounds)
+    banded = ops.meshnet_apply_megakernel(prepared, x, cfg, pln=pln, precision=precision, z_bounds=bounds, rows=rows)
+    assert torch.equal(banded[:, rows[0] : rows[1]], whole[:, rows[0] : rows[1]])
+    bands = mk.segment_bands(pln, rows, bounds)
+    assert bands == [(2, 12), (5, 9)]  # the kept rows grown by the 3 rows of dilation after segment 0
+    xs = {"fp32": x.float(), "bf16": x.to(torch.bfloat16), "int8w": quantize.quantize_input(x)}[precision][..., None]
+    h = pln.segments[0].halo
+    act = torch.zeros((1,) + tuple(p + 2 * h for p in pln.padded(pln.segments[0])) + (1,), dtype=xs.dtype)
+    act[:, h : h + 14, h : h + 7, h : h + 6] = xs
+    junk = 100 if xs.dtype == torch.int8 else float("nan")
+    for i, seg in enumerate(pln.segments):
+        layers, head = ops.megakernel_operands(prepared, cfg, seg, precision)
+        deq, qs = mk.scale_operands(pln, i) if precision != "fp32" else (False, False)
+        operands = (layers, head, scales[seg.start - 1] if deq else None,
+                    scales[seg.start + len(seg.dilations) - 1] if qs else None)
+        clean = mk.run_segment(act, pln, i, *operands, z_bounds=bounds)
+        lo, hi = bands[i]
+        poisoned = act.clone()
+        poisoned[:, : seg.halo + lo - seg.halo] = junk  # rows below the band's reach
+        poisoned[:, seg.halo + hi + seg.halo :] = junk  # and above it
+        got = mk.run_segment(poisoned, pln, i, *operands, z_bounds=bounds, band=bands[i])
+        o, padded = pln.out_halo(i), pln.padded(seg)
+        kept = (slice(None), slice(o + lo, o + hi), slice(o, o + padded[1]), slice(o, o + padded[2]))
+        assert torch.equal(got[kept], clean[kept]), i
+        act = clean
+
+
+def test_band_rows_layers_of_the_sharded_windows():
+    """gwm_light's 4 slabs of 64 rows at 256^3: each window of 64 + 2 x 46
+    rows computes 9 one-layer segments; the bands the kept rows need are
+    64 + 2 R_j rows at an inner slab and 64 + R_j at an end slab (R_j = 45,
+    43, 39, 31, 15, 7, 3, 1, 0), 3,408 rows x layers in all against 5,616
+    without them, at fp32 and bf16 alike."""
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    radius = sum(cfg.dilations)
+    for precision in ("fp32", "bf16"):
+        pln = mk.plan_for_config(cfg, (64 + 2 * radius, 256, 256), precision=precision)
+        assert [len(seg.dilations) for seg in pln.segments] == [1] * 9
+        total = 0
+        for i in range(4):
+            bands = mk.segment_bands(pln, (radius, radius + 64), spatial_shard.window_z_bounds(i, 64, 4, radius))
+            total += mk.band_rows_layers(pln, bands)
+        assert total == 3408
+        assert 4 * (64 + 2 * radius) * 9 == 5616 <= 4 * mk.band_rows_layers(pln)

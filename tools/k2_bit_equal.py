@@ -14,7 +14,9 @@ and int8w (K2, K2r a segment of the planner's plans), and a gwm_light
 forward at (2, 37, 45, 29) on a plan forced to several multi-layer
 segments by a 40,000-byte shared-memory budget at fp32 (K2). ``--save``
 writes the logits; ``--compare`` reads them and fails unless every
-tensor is equal bit for bit, printing each case's verdict and the card.
+tensor is equal bit for bit, printing each case's verdict and the card;
+``--match`` keeps only the cases whose name holds it (``--match fp32``:
+K2's, when K2r is meant to differ).
 Nothing here is imported by the port.
 """
 
@@ -49,7 +51,8 @@ def cases(torch, src: str) -> dict:
         out[f"256^3 {precision}"] = ops.meshnet_apply_megakernel(params, x, cfg, precision=precision).cpu()
     small = torch.rand((2, 37, 45, 29), generator=gen).to(dev)
     pln = mk.plan_for_config(cfg, small.shape[1:], smem_budget=40_000, batch=2)
-    out[f"forced plan of {len(pln.segments)} segments"] = ops.meshnet_apply_megakernel(params, small, cfg, pln=pln).cpu()
+    out[f"fp32 forced plan of {len(pln.segments)} segments"] = ops.meshnet_apply_megakernel(params, small, cfg,
+                                                                                            pln=pln).cpu()
     torch.cuda.synchronize()
     return out
 
@@ -60,6 +63,7 @@ def main(argv=None) -> int:
     mode = parser.add_mutually_exclusive_group(required=True)
     mode.add_argument("--save", help="write the outputs here")
     mode.add_argument("--compare", help="compare with the outputs written here")
+    parser.add_argument("--match", default="", help="only the cases whose name holds this (e.g. fp32)")
     args = parser.parse_args(argv)
     import torch
 
@@ -69,13 +73,13 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(f"card: {smi.stdout.strip()}; repro_torch from {args.src}")
-    out = cases(torch, args.src)
+    out = {key: t for key, t in cases(torch, args.src).items() if args.match in key}
     if args.save:
         Path(args.save).parent.mkdir(parents=True, exist_ok=True)
         torch.save(out, args.save)
         print(f"saved {sorted(out)} to {args.save}")
         return 0
-    saved = torch.load(args.compare)
+    saved = {key: t for key, t in torch.load(args.compare).items() if args.match in key}
     ok = sorted(saved) == sorted(out)
     for key, got in out.items():
         same = key in saved and saved[key].dtype == got.dtype and torch.equal(saved[key], got)

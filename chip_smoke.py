@@ -141,9 +141,13 @@ staging) a segment. Phases, each printed on lines of its own:
                 K1r and K2 never; F1: an engine whose budget forces
                 pick_mode to subvolume serves a 256^3 volume (K1 9 x 64);
             9d  CUDA-event medians of K1r per layer at bf16 and int8w at
-                256^3 (kernel, plain, F.conv3d at bf16, the bound: bf16
-                tensor-core operations or 2-byte activations, and the fp32
-                CUDA-core time of its operations); K2r per segment of the
+                256^3 (kernel, its device time of 10 calls back to back,
+                plain, F.conv3d at bf16, the bound: bf16 tensor-core
+                operations or 2-byte activations, and the fp32 CUDA-core
+                time of its operations; its tile, shared memory,
+                registers, spills and blocks an SM, held to the Python
+                mirror, and the rows it stages) and summed over a forward;
+                K2r per segment of the
                 256^3 plan at bf16 and int8w (a call's CUDA-event time,
                 as every kernel's, and beside it its device time, 10 calls
                 back to back; plain,
@@ -1860,6 +1864,7 @@ def phase_reduced_times(dev, card: str, size: int) -> tuple[list[dict], list[dic
             x, w, b, s, o = reduced_inputs(gen, shape, cin, cout, w_int8, dev)
             kw = dict(dilation=d, scale=s, offset=o, fuse_affine=True)
             kernel_ms = time_ms(lambda: k1.dilated_conv3d(x, w, b, **kw))
+            dev_ms = device_ms(lambda: k1.dilated_conv3d(x, w, b, **kw))
             plain_ms = time_ms(lambda: ref.dilated_conv3d(x, w, b, **kw), runs=5)
             x_ncdhw = x.permute(0, 4, 1, 2, 3)  # a view: the data stays channels-last
             w_oidhw = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()  # int8 codes are exact in bf16
@@ -1868,15 +1873,29 @@ def phase_reduced_times(dev, card: str, size: int) -> tuple[list[dict], list[dic
             ops_, bytes_ = k1r_work(shape, cin, cout, d, 1 if w_int8 else 2)
             t_ops, t_bytes = ops_ / BF16_TC_PEAK * 1e3, bytes_ / peak_bw * 1e3
             bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+            regs, spills = k1.lp_registers(cin, cout, d, w_int8)
+            per_sm = k1.lp_blocks_per_sm(cin, cout, d, w_int8)
+            check(k1.lp_library_tile(cin, cout, d) == k1.lp_tile(cin, cout, d)
+                  and per_sm == k1.lp_blocks_per_sm_model(cin, cout, d, regs),
+                  f"K1r {cin}->{cout} d={d}: the library's tile or blocks an SM differ from the Python mirror's")
+            check(spills == 0, f"K1r {cin}->{cout} d={d}: {spills} bytes of local memory a thread (spills)")
             row = dict(
                 dilation=d, cin=cin, cout=cout, weights="int8" if w_int8 else "bf16", launches_per_forward=count,
-                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                share_of_bound=bound_ms / kernel_ms, fp32_cuda_core_ms=ops_ / peak_fp32 * 1e3,
-                blocks_per_sm=k1.lp_blocks_per_sm(cin, cout, w_int8), ops=ops_, bytes=bytes_,
+                kernel_ms=kernel_ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by, share_of_bound=bound_ms / kernel_ms, fp32_cuda_core_ms=ops_ / peak_fp32 * 1e3,
+                tile=list(k1.lp_tile(cin, cout, d)), smem_bytes=k1.lp_smem_bytes(cin, cout, d), registers=regs,
+                spill_bytes=spills, blocks_per_sm=per_sm, tiles=k1.lp_tile_count(shape, cin, cout, d),
+                staged_rows=k1.lp_staged_rows(shape, cin, cout, d), ops=ops_, bytes=bytes_,
             )
             print("times K1r " + json.dumps(row))
             rows.append(row)
             del x
+    for weights in ("bf16", "int8"):
+        mine = [r for r in rows if r["weights"] == weights]
+        total = lambda key: sum(r[key] * r["launches_per_forward"] for r in mine)  # noqa: E731
+        print(f"times K1r forward {weights} weights: kernels {total('kernel_ms'):.4f} ms (CUDA events; device time "
+              f"{total('device_ms'):.4f}), bound {total('bound_ms'):.4f}, F.conv3d {total('library_ms'):.4f}, "
+              f"plain {total('plain_ms'):.4f} (9 launches, one gwm_light forward at {size}^3)")
     params = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
     vol, _ = mri.generate(gen, mri.SyntheticMRIConfig(shape=(size,) * 3), device=dev)
     xs = conform.conform(vol, (size,) * 3)[None]
@@ -2353,11 +2372,14 @@ def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err,
                 "launches": launches["subvolume"]["reduced"]["K1r"],
                 "max_abs_err": k1r_err,
                 "ms": t16["kernel_ms"],
+                "device_ms": sum(r["device_ms"] * r["launches_per_forward"] for r in r16),
                 "plain_ms": t16["plain_ms"],
                 "bound_ms": b16,
                 "bound_by": by16,
                 "library_ms": sum(r["library_ms"] * r["launches_per_forward"] for r in r16),
                 "library": "F.conv3d on bf16 operands (cuDNN), conv + bias only",
+                "registers": max(r["registers"] for r in k1r_rows),
+                "blocks_per_sm": sorted({r["blocks_per_sm"] for r in k1r_rows}),
                 "fp32_cuda_core_ms": sum(r["fp32_cuda_core_ms"] * r["launches_per_forward"] for r in r16),
                 "ms_int8w": t8["kernel_ms"],
                 "plain_ms_int8w": t8["plain_ms"],

@@ -94,15 +94,16 @@ def resolve_precision(name: Optional[str], model: Any = None) -> str:
     ``"auto"`` is fp32 on every device. The reference serves bf16 (int8w
     for models of 16 channels or more) on its TPU, where MeshNet's layers
     are bound by device-memory bytes and halving them is a speedup. On
-    the H100 they are bound by the fp32 FMA rate of the CUDA cores (20
-    operations a byte at the ridge; a 5 -> 5 layer does 1350 a voxel
-    against 40 bytes), and K1r, which reads half the bytes, does the same
-    FMAs on the same cores: a reduced policy buys nothing but its error
-    until a tensor-core K1r exists. Measured with chip_smoke.py phase 9d
-    (NVIDIA H100 80GB HBM3, 700 W): one gwm_light forward at 256^3 under
-    cuda_fused takes 10.09 ms at fp32 against 13.10 ms at bf16 and 14.00
-    ms at int8w (its nine K1r launches 11.63 ms, K1's 9.01). An explicit
-    name always wins.
+    the H100, K1 runs fp32 on the CUDA cores' FMAs, and K1r (since its
+    tensor-core redesign) runs bf16 on the tensor cores. Measured with
+    chip_smoke.py phase 9d (NVIDIA H100 80GB HBM3, 700 W), one gwm_light
+    forward at 256^3 under cuda_fused takes 10.09 ms at fp32 against 6.33
+    and 6.30 ms at bf16 and 7.20 and 6.94 ms at int8w (K1r's nine
+    launches 4.87 ms, K1's 9.02); the CUDA-core K1r before it took 13.10
+    and 13.87 ms in the same call. Whether ``auto`` should take a reduced
+    policy changes what users get (bf16's logits are 1.6e-2 from fp32's
+    at 256^3, int8w's 4.7e-2), so it stays fp32 until that is decided.
+    An explicit name always wins.
     """
     if name is not None and name != AUTO:
         return validate(name)

@@ -583,23 +583,28 @@ def _reduced_inputs(seed, shape, cin, cout, wdtype, device):
     return [t.to(device) for t in (x, w, b, s, o)]
 
 
+@pytest.mark.parametrize("shape", [(2, 10, 12, 14), (2, 9, 11, 72)], ids=["w14", "w72"])
 @pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
 @pytest.mark.parametrize("dilation", [1, 3, 16, 40])
 @pytest.mark.parametrize("cin", [1, 5, 64])
 @pytest.mark.parametrize("cout", [5, 10, 18, 21])
-def test_reduced_kernel_matches_plain_version(cuda, cout, cin, dilation, wdtype):
+def test_reduced_kernel_matches_plain_version(cuda, cout, cin, dilation, wdtype, shape):
     """K1r at every instantiated width with Cin 1, 5 and 64, bf16 or int8
-    weights, batch 2 at the odd shape (10, 12, 14); d = 16 and 40 are past
-    every extent. Both round an fp32 sum to bf16, the sums in different
-    orders, so one bf16 step at the layer's largest magnitude is the most
-    they may differ by."""
-    x, w, b, s, o = _reduced_inputs(cout * 100 + cin + dilation, (2, 10, 12, 14), cin, cout, wdtype, cuda)
+    weights, batch 2 at the odd shape (10, 12, 14), whose rows are not
+    16-byte aligned at Cin 1 and 5 (laid out element by element), and at W
+    = 72, whose rows are (copied in 16-byte granules) and not a multiple
+    of a tile's 64 voxels; d = 16 and 40 are past every extent, and Cin 64
+    at d = 40 narrows the tile (one m16 tile along x, fewer warps at C >=
+    10). Both round an fp32 sum to bf16, the sums in different orders, so
+    one bf16 step at the layer's largest magnitude is the most they may
+    differ by."""
+    x, w, b, s, o = _reduced_inputs(cout * 100 + cin + dilation + shape[-1] - 14, shape, cin, cout, wdtype, cuda)
     kw = dict(dilation=dilation, scale=s, offset=o, fuse_affine=True)
     before = (conv_kernel.launches, conv_kernel.reduced_launches)
     got = conv_kernel.dilated_conv3d(x, w, b, **kw)
     torch.cuda.synchronize()
     assert (conv_kernel.launches - before[0], conv_kernel.reduced_launches - before[1]) == (0, 1)
-    assert got.dtype == torch.bfloat16 and got.shape == (2, 10, 12, 14, cout)
+    assert got.dtype == torch.bfloat16 and got.shape == shape + (cout,)
     expect = ref.dilated_conv3d(x, w, b, **kw)
     assert float((got.float() - expect.float()).abs().max()) <= BF16_STEP * float(expect.float().abs().max())
 
@@ -607,11 +612,15 @@ def test_reduced_kernel_matches_plain_version(cuda, cout, cin, dilation, wdtype)
 @pytest.mark.parametrize(
     "shape,cin,cout,dilation",
     [
-        ((1, 4, 5, 300), 5, 5, 1),  # two chunks of 256 voxels a row, the second ragged
+        ((1, 4, 5, 300), 5, 5, 1),  # five chunks of 64 voxels a row, the last ragged
         ((1, 3, 6, 530), 1, 5, 7),
         ((2, 3, 4, 150), 21, 21, 150),
         ((1, 9, 7, 5), 64, 21, 2),
         ((1, 37, 45, 29), 5, 10, 4),
+        ((2, 6, 5, 200), 5, 5, 16),  # 16-byte aligned rows, W not a multiple of 64
+        ((1, 5, 6, 100), 64, 5, 40),  # d past the tile's 16 voxels: three windows a row
+        ((1, 12, 9, 96), 5, 5, 70),  # three windows of 64 voxels, 16-byte granules
+        ((2, 33, 18, 64), 1, 5, 2),  # the first layer's width, two row groups in z and y
     ],
 )
 def test_reduced_kernel_chunks_and_unfused(cuda, shape, cin, cout, dilation):
@@ -625,10 +634,45 @@ def test_reduced_kernel_chunks_and_unfused(cuda, shape, cin, cout, dilation):
             assert float((got.float() - expect.float()).abs().max()) <= BF16_STEP * float(expect.float().abs().max())
 
 
+@pytest.mark.parametrize("cin", [5, 64])
+def test_reduced_kernel_unaligned_base(cuda, cin):
+    """A contiguous input whose first element is not 16-byte aligned (a
+    view at an offset of one element) is laid out element by element."""
+    shape = (1, 7, 9, 80)
+    x, w, b, s, o = _reduced_inputs(cin, shape, cin, 5, torch.bfloat16, cuda)
+    n = x.numel()
+    x1 = torch.empty(n + 8, dtype=torch.bfloat16, device=cuda)[1:n + 1].view(x.shape)
+    x1.copy_(x)
+    assert x1.is_contiguous() and x1.data_ptr() % 16 != 0
+    kw = dict(dilation=3, scale=s, offset=o, fuse_affine=True)
+    got = conv_kernel.dilated_conv3d(x1, w, b, **kw)
+    torch.cuda.synchronize()
+    expect = ref.dilated_conv3d(x, w, b, **kw)
+    assert float((got.float() - expect.float()).abs().max()) <= BF16_STEP * float(expect.float().abs().max())
+
+
 def test_reduced_kernel_layout_and_refusals(cuda):
+    """The library's tile, shared memory and blocks an SM are the Python
+    mirror's (``lp_tile``, ``lp_smem_bytes``, ``lp_blocks_per_sm_model``
+    from the kernel's own registers), at every instantiated width, Cin 1, 5,
+    21, 64 and 128 and d 1 to 40; no register spills; at least 2 blocks an
+    SM for every gwm_light layer at 256^3."""
     lib = conv_kernel._lp_kernel()[0]
-    for cin, cout in itertools.product((1, 5, 21, 64, 128), (5, 10, 18, 21)):
-        assert lib.repro_dilated_conv3d_lp_smem_bytes(cin, cout) == conv_kernel.lp_smem_bytes(cin, cout)
+    for cin, cout, d in itertools.product((1, 5, 21, 64, 128), (5, 10, 18, 21), (1, 2, 4, 8, 16, 40)):
+        assert lib.repro_dilated_conv3d_lp_smem_bytes(cin, cout, d) == conv_kernel.lp_smem_bytes(cin, cout, d)
+        assert conv_kernel.lp_library_tile(cin, cout, d) == conv_kernel.lp_tile(cin, cout, d)
+        if conv_kernel.lp_tile(cin, cout, d) is None:
+            continue  # refused (Cin 128 at the wider widths)
+        for w_int8 in (False, True):
+            regs, spills = conv_kernel.lp_registers(cin, cout, d, w_int8)
+            # the kernel's launch bounds: 4 blocks of 128 threads an SM at C <= 8, else 3
+            assert spills == 0 and regs <= (128 if cout <= 8 else 168), (cin, cout, d, regs, spills)
+            per_sm = conv_kernel.lp_blocks_per_sm(cin, cout, d, w_int8)
+            assert per_sm == conv_kernel.lp_blocks_per_sm_model(cin, cout, d, regs), (cin, cout, d, per_sm)
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    for i, d in enumerate(cfg.dilations):
+        cin = cfg.in_channels if i == 0 else cfg.channels
+        assert conv_kernel.lp_blocks_per_sm(cin, cfg.channels, d, False) >= 2
     x, w, b, s, o = _reduced_inputs(0, (1, 8, 8, 8), 5, 5, torch.bfloat16, cuda)
     with pytest.raises(TypeError, match="bfloat16 or int8"):
         conv_kernel.dilated_conv3d(x, w.float(), b)
@@ -639,7 +683,8 @@ def test_reduced_kernel_layout_and_refusals(cuda):
     x3, w3, b3, _, _ = _reduced_inputs(0, (1, 8, 8, 8), 5, 3, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="Cout=3"):
         conv_kernel.dilated_conv3d(x3, w3, b3)
-    xw, ww, bw, _, _ = _reduced_inputs(0, (1, 4, 4, 4), 128, 21, torch.bfloat16, cuda)
+    assert not lib.repro_dilated_conv3d_lp_supports(3)
+    xw, ww, bw, _, _ = _reduced_inputs(0, (1, 4, 4, 4), 256, 21, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         conv_kernel.dilated_conv3d(xw, ww, bw)
 

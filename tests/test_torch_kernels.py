@@ -3,6 +3,7 @@ wrapper against repro.kernels.ref and the Pallas K1 in interpret mode,
 and the fused forward against repro.core.meshnet.apply."""
 
 import dataclasses
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -166,6 +167,97 @@ class TestDilatedConv3D:
         assert conv_kernel.smem_bytes(cin, cout) == 4 * floats <= conv_kernel.SMEM_LIMIT
         assert conv_kernel.voxels_per_lane(cout) == (8 if cout <= 5 else 4)
         assert conv_kernel.rows_per_warp(cout) == (2 if cout <= 10 else 1)
+
+
+class TestReducedLayout:
+    """K1r's tile and shared memory (``lp_tile``, ``lp_layout``, the Python
+    mirror of csrc/dilated_conv3d_lp.cu that the card tests hold to the
+    library), the rows it stages, and what its wrapper refuses."""
+
+    @pytest.mark.parametrize(
+        "cin,cout,d,tile,raw,total",
+        [
+            # params: zero group 16, B fragments 9 tap rows x 2 k16 steps x
+            # 1 n8 tile x 256, table 16, bias/scale/offset 64, 4 mbarriers
+            # 32 -> rows at 4736; 24 staged rows of 66 positions x 16 bytes;
+            # raw 24 x 16 Cin (ceil(66 / 8) + 1) groups; 8 output rows of
+            # ceil16(64 x 5 x 2) + 32 = 672 bytes
+            (5, 5, 1, (4, 2, 4), 4736 + 24 * 66 * 16, 4736 + 24 * 66 * 16 + 24 * 800 + 8 * 672),  # 54,656
+            (1, 5, 1, (4, 2, 4), 4736 + 24 * 66 * 16, 4736 + 24 * 66 * 16 + 24 * 160 + 8 * 672),  # 39,296
+            # d = 16: rows of 64 + 32 positions, 13 groups a raw row
+            (5, 5, 16, (4, 2, 4), 4736 + 24 * 96 * 16, 4736 + 24 * 96 * 16 + 24 * 1040 + 8 * 672),  # 71,936
+            # d = 70 > 64 voxels: three windows of 64 positions a row, 3 x 9 groups
+            (5, 5, 70, (4, 2, 4), 4736 + 24 * 192 * 16, 4736 + 24 * 192 * 16 + 24 * 2160 + 8 * 672),
+            # 64 -> 21 at d = 40: 12 k16 steps x 3 n8 tiles of fragments; 4 and
+            # 2 warps do not fit, 1 warp of 4 rows x 16 voxels does; 144-byte
+            # positions (9 groups), no raw buffer (cp.async straight in)
+            (64, 21, 40, (1, 4, 1), 83344 + 18 * 48 * 144, 83344 + 18 * 48 * 144 + 4 * 704),  # 210,576
+        ],
+    )
+    def test_k1r_layout_is_hand_counted(self, cin, cout, d, tile, raw, total):
+        assert conv_kernel.lp_tile(cin, cout, d) == tile
+        layout = conv_kernel.lp_layout(cin, cout, d, tile)
+        assert (layout.raw, layout.total) == (raw, total)
+        assert conv_kernel.lp_smem_bytes(cin, cout, d) == total <= conv_kernel.SMEM_LIMIT
+        assert layout.rows % 16 == layout.raw % 16 == layout.obuf % 16 == 0
+        assert conv_kernel.lp_blocking(cout) == {5: (2, 4), 21: (4, 1)}[cout]
+
+    @pytest.mark.parametrize("cout", [5, 10, 18, 21])
+    def test_k1r_every_case_fits(self, cout):
+        # every case phase 9a and the card tests launch has a tile that fits
+        # one block; the narrowest tiles only where Cin = 64 needs them
+        for cin, d in itertools.product((1, 5, 64), (1, 2, 3, 4, 8, 16, 40)):
+            tile = conv_kernel.lp_tile(cin, cout, d)
+            assert tile is not None, (cin, d)
+            assert conv_kernel.lp_smem_bytes(cin, cout, d) <= conv_kernel.SMEM_LIMIT
+            if cin < 64:
+                assert tile == (4,) + conv_kernel.lp_blocking(cout), (cin, d, tile)
+        # gwm_light's layers keep at least 3 blocks an SM at 128 registers
+        for d in (1, 2, 4, 8, 16):
+            assert conv_kernel.lp_blocks_per_sm_model(5, 5, d, 128) >= 3
+        assert conv_kernel.lp_blocks_per_sm_model(5, 5, 1, 128) == 4  # registers and shared memory alike
+
+    def test_k1r_stages_each_row_about_three_times(self):
+        # gwm_light at 256^3: per tile (4 z rows x 2 y rows x 64 voxels) the
+        # 6 x 4 input rows it reads, those in the volume. d = 1: 64 z groups
+        # read 6 planes but the first and last 5 (382), 128 y groups 4 rows
+        # but 2 (510), 4 x chunks
+        shape = (1, 256, 256, 256)
+        assert conv_kernel.lp_staged_rows(shape, 5, 5, 1) == 382 * 510 * 4
+        assert conv_kernel.lp_tile_count(shape, 5, 5, 1) == 64 * 128 * 4
+        out_rows = 256 * 256
+        cfg = meshnet.PAPER_MODELS["gwm_light"]
+        cin = cfg.in_channels
+        for d in cfg.dilations:
+            tiles_x = 256 // 64
+            per_out_row = conv_kernel.lp_staged_rows(shape, cin, cfg.channels, d) / (out_rows * tiles_x)
+            # each output row's span: 2.58 (d = 16) to 2.97 (d = 1) copies,
+            # against 9 input-row loads an output row in the first K1r
+            # (each tap its own load) and 3 (M + 2) / M = 6 in K2r's
+            # per-warp streaming (M = 2 rows an item)
+            assert 2.5 < per_out_row < 3.0, (d, per_out_row)
+            cin = cfg.channels
+
+    def test_k1r_wrapper_refuses_what_the_kernel_does_not_take(self):
+        x = torch.zeros((1, 8, 8, 8, 5), dtype=torch.bfloat16)
+        w = torch.zeros((3, 3, 3, 5, 5), dtype=torch.bfloat16)
+        b = torch.zeros(5)
+        check = conv_kernel.lp_check
+        assert check(x, w, b, 1, None, None, False) == (None, None)
+        scale, offset = check(x, w, b, 1, None, None, True)
+        assert torch.equal(scale, torch.ones(5)) and torch.equal(offset, torch.zeros(5))
+        with pytest.raises(TypeError, match="bfloat16 or int8"):
+            check(x, w.float(), b, 1, None, None, False)
+        with pytest.raises(TypeError, match="float32 bias"):
+            check(x, w, b.to(torch.bfloat16), 1, None, None, False)
+        with pytest.raises(ValueError, match="contiguous"):
+            check(x.transpose(1, 2), w, b, 1, None, None, False)
+        with pytest.raises(ValueError, match="Cout=3"):
+            check(x, w[..., :3].contiguous(), b[:3], 1, None, None, False)
+        x256 = torch.zeros((1, 4, 4, 4, 256), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="shared memory"):
+            check(x256, torch.zeros((3, 3, 3, 256, 21), dtype=torch.int8), torch.zeros(21), 1, None, None, False)
+        assert conv_kernel.lp_tile(256, 21, 1) is None
 
 
 class TestFusedForward:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segmentation, training and LM-serving main
 paths on one CUDA card, and segmentation's sub-volume mode and bf16 and
-int8w policies (through K1r and K2r).
+int8w policies (through K1r and K2r), its Z-sharded executors and its
+queued serving through the request scheduler.
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # tiny shapes, plain paths, CPU
@@ -189,14 +190,36 @@ staging) a segment. Phases, each printed on lines of its own:
                 band (device times beside them, plain, F.conv3d over the band's rows, the bound over the
                 band and over the rows inside z_bounds), and the sharded
                 forwards beside the single-device ones
-11. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r,
+11. queued  serving through the request scheduler (serving/scheduler.py),
+            one SegmentationEngine at 256^3 with brain_mask_fast as the
+            crop model, each line with the card's name and power limit:
+            11a main path: submit_async of 2 interactive fp32 requests
+                (auto), a bf16 and an int8w standard one, a batch fp32 one
+                under cuda_megakernel and a garbage 1-D volume, then drain,
+                under an admission budget that demotes the fp32 requests
+                to mode subvolume and not the reduced ones; every count
+                set to 0 just before the drain and read just after: K1,
+                K1r and K2 exactly what the records imply; conserved,
+                classes dispatched in priority order, every request but
+                the garbage ok (a kernel that raises would be a typed
+                failure here) and stamped with its executor, precision,
+                class and batch size, queue_wait_s + service_s the
+                request's end to end, each segmentation equal to submit's
+                at the resolved mode, executor and precision (host ms of
+                both printed); the garbage request a permanent_fault;
+            11b submit_many of 3 volumes at None, bf16, int8w: submission
+                order, each equal to submit's, one resolution a signature;
+            11c simulate(reference_engine("cuda"), preset("steady",
+                horizon_s=60)) with execute=True: conserved, every
+                request but the garbage lane ok under cuda_fused
+12. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r,
             K2z)
-12. ok      the last line, {"ok": true, "device": {...}}
+13. ok      the last line, {"ok": true, "device": {...}}
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line. Without a CUDA device (and without --cpu-rehearsal) it exits 1.
 --cpu-rehearsal runs phases 1, 4, 5, 7b, 7c, 8c (TinyLlama's smoke
-config), 9b, 9e and 9c (cube 8, overlap 4) at a tiny size on the CPU with
+config), 9b, 9e, 9c (cube 8, overlap 4), 10a, 10b and 11 at a tiny size on the CPU with
 the plain versions, to find wrong paths and shapes without a card; it
 never prints the ok line.
 """
@@ -236,6 +259,8 @@ from repro_torch.kernels import megakernel as k2  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving.engine import LMEngine, Request, SegmentationEngine  # noqa: E402
+from repro_torch.serving import simulator  # noqa: E402
+from repro_torch.serving.scheduler import RequestScheduler, SchedulerConfig  # noqa: E402
 from repro_torch.telemetry.budget import MemoryBudget  # noqa: E402
 from repro_torch.training import checkpoint, losses, optimizer, trainer  # noqa: E402
 
@@ -2235,6 +2260,207 @@ def phase_sharded_times(dev, card: str, size: int) -> list[dict]:
     return rows
 
 
+# ------------------------------------------- phase 11: queued serving ---
+
+#: phase 11's drained requests: (priority class, executor, precision); a
+#: garbage 1-D volume follows them
+QUEUED = (
+    ("interactive", None, None),
+    ("interactive", None, None),
+    ("standard", None, "bf16"),
+    ("standard", None, "int8w"),
+    ("batch", "cuda_megakernel", None),
+)
+CLASS_RANK = {"interactive": 0, "standard": 1, "batch": 2}
+
+
+def card_line(rehearsal: bool) -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    if rehearsal:
+        return "no card (cpu rehearsal)"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return smi.stdout.strip()
+
+
+def implied_launches(rec, cfg, mcfg, shape, cube: int, overlap: int) -> dict:
+    """The launches a served request's record implies: one K1 (K1r at a
+    reduced policy) a layer of each forward under cuda_fused, one K2 (K2r)
+    a segment of each forward's plan under cuda_megakernel; the mask
+    model's forward over the whole volume, the main model's over the crop
+    or, in mode subvolume, over each cube of it."""
+    out = {"K1": 0, "K1r": 0, "K2": 0, "K2r": 0, "K2z": 0}
+    reduced = rec.precision != "fp32"
+    sub = rec.mode == "subvolume"
+    region = rec.crop_size or shape
+    ncubes = math.prod(-(-s // cube) for s in region) if sub else 1
+    main = (cube + 2 * overlap,) * 3 if sub else region
+    if rec.executor == "cuda_fused":
+        out["K1r" if reduced else "K1"] = (len(mcfg.dilations) if mcfg else 0) + ncubes * len(cfg.dilations)
+    elif rec.executor == "cuda_megakernel":
+        segs = len(k2.plan_for_config(cfg, main, precision=rec.precision).segments)
+        mask = len(k2.plan_for_config(mcfg, shape, precision=rec.precision).segments) if mcfg else 0
+        out["K2r" if reduced else "K2"] = mask + ncubes * segs
+    return out
+
+
+def summed(dicts) -> dict:
+    out = {"K1": 0, "K1r": 0, "K2": 0, "K2r": 0, "K2z": 0}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] += v
+    return out
+
+
+def phase_queued(dev, size: int, rehearsal: bool) -> dict:
+    cube, overlap = (8, 4) if rehearsal else (CUBE, OVERLAP)
+    card = card_line(rehearsal)
+    print(f"== phase 11: queued serving through the request scheduler at {size}^3 (card: {card})")
+    cfg, mcfg, params, mparams, vols, _ = served_models(dev, size)
+    shape = (size,) * 3
+    gen = torch.Generator().manual_seed(SEED + 11)
+    vols = vols + [mri.generate(gen, mri.SyntheticMRIConfig(shape=shape), device=dev)[0] for _ in range(2)]
+    engine = SegmentationEngine(
+        params,
+        PipelineConfig(name="gwm_light", model=cfg, volume_shape=shape, use_cropping=True, cube=cube, overlap=overlap),
+        mask_model=(mparams, mcfg), device=dev,
+    )
+    cuda = dev.type == "cuda"
+    fused = "cuda_fused" if cuda else "torch"
+    out = {}
+
+    print("-- 11a: submit_async, then drain: 2 interactive fp32 (auto), a bf16 and an int8w standard, a batch "
+          "fp32 under cuda_megakernel, a garbage 1-D volume")
+    unl = MemoryBudget.unlimited()
+    fp32_price = unl.charge_streaming(shape, cfg, dtype_bytes=4)
+    bf16_price = unl.charge_streaming(shape, cfg, dtype_bytes=2)
+    sub_price = unl.charge_subvolume(cube, overlap, cfg, dtype_bytes=4)
+    # at or above the bf16 price and under the fp32 one, and room for the
+    # two interactive requests' demoted forms in one group
+    cap = max(bf16_price, 2 * sub_price)
+    check(cap < fp32_price, f"no admission budget demotes fp32 alone at {size}^3")
+    sched = engine.scheduler(SchedulerConfig(admission_hbm_bytes=cap, max_batch_requests=4))
+    print(f"admission budget {cap} bytes: streaming a {size}^3 request is priced {fp32_price} at fp32 and "
+          f"{bf16_price} at bf16, a cube {sub_price} at fp32, so the fp32 requests demote to mode subvolume")
+    asked = {}
+    for (prio, executor, precision), vol in zip(QUEUED, vols):
+        asked[engine.submit_async(vol, priority=prio, executor=executor, precision=precision)] = (
+            prio, executor, precision, vol)
+    garbage = engine.submit_async(torch.zeros(3, device=dev), priority="standard")
+    t0 = time.perf_counter()
+    comps, counts = count_launches(dev, engine.drain)
+    drain_s = time.perf_counter() - t0
+    st = sched.stats
+    print(f"drained {len(comps)} requests in {drain_s * 1e3:.3f} ms host clock ({card}); batches {st.batches}, "
+          f"completed {st.completed}, demoted {st.demoted}, rejected {st.rejected}, permanent faults "
+          f"{st.permanent_faults}; launches {counts}")
+    check(st.conserved() and st.admitted == len(QUEUED) + 1 and len(comps) == len(QUEUED) + 1,
+          f"the drain is not conserved: {st}")
+    by_finish = sorted(comps, key=lambda c: c.finish_s)
+    classes = [c.record.priority_class for c in by_finish]
+    print(f"dispatch order by finish: {[(c.id, c.record.priority_class) for c in by_finish]}")
+    check(classes == sorted(classes, key=CLASS_RANK.get), f"classes served out of priority order: {classes}")
+    implied = []
+    for c in comps:
+        rec = c.record
+        if c.id == garbage:
+            error = rec.extra.get("error", "")
+            print(f"garbage request {c.id}: outcome {c.outcome} status {rec.status} fail_type {rec.fail_type}; {error}")
+            check(rec.status == "fail" and rec.fail_type == "permanent_fault" and c.result is None,
+                  f"the garbage request is not a typed permanent fault: {rec.status} {rec.fail_type}")
+            check("kernel" not in error, f"the garbage request failed in a kernel: {error}")
+            continue
+        prio, executor, precision, vol = asked[c.id]
+        # the scheduler isolates every exception as a typed failure record,
+        # so a kernel that fails to build or launch would land here
+        check(rec.status == "ok", f"request {c.id} ({prio}) failed: {rec.fail_type} {rec.extra.get('error')}")
+        want = "cuda_megakernel" if executor == "cuda_megakernel" else fused
+        check(rec.executor == want and rec.precision == (precision or "fp32") and rec.priority_class == prio,
+              f"request {c.id} stamped {rec.executor} {rec.precision} {rec.priority_class}")
+        check(rec.batch_size == (2 if prio == "interactive" else 1), f"request {c.id} batch size {rec.batch_size}")
+        demoted = precision is None
+        check(c.outcome == ("demoted" if demoted else "completed") and rec.demoted == demoted
+              and rec.mode == ("subvolume" if demoted else "streaming"),
+              f"request {c.id} outcome {c.outcome} mode {rec.mode}")
+        check(abs(rec.queue_wait_s + rec.service_s - (c.finish_s - c.arrival_s)) <= 1e-6,
+              f"request {c.id}: queue_wait_s + service_s != finish - arrival")
+        implied.append(implied_launches(rec, cfg, mcfg, shape, cube, overlap) if cuda else {})
+        synchronize(dev)
+        t0 = time.perf_counter()
+        again = engine.submit(vol, mode=rec.mode, executor=rec.executor, precision=rec.precision)
+        synchronize(dev)
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(c.result.segmentation, again.segmentation)
+        print(f"queued request {c.id} {prio} {rec.precision} {rec.executor}: outcome {c.outcome} mode {rec.mode} "
+              f"crop {rec.crop_size} batch {rec.batch_size}; queue wait {rec.queue_wait_s * 1e3:.3f} ms, service "
+              f"{rec.service_s * 1e3:.3f} ms host clock; submit of the same request {submit_ms:.3f} ms; equal "
+              f"{same} ({card})")
+        check(same, f"request {c.id}'s segmentation differs from submit's")
+    expect = summed(implied)
+    check(counts == expect, f"drained launches {counts}, the served requests imply {expect}")
+    out["drain"] = counts
+
+    print("-- 11b: submit_many of 3 volumes, precisions None, bf16, int8w")
+    precisions = [None, "bf16", "int8w"]
+    made = []
+    init = RequestScheduler.__init__
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    RequestScheduler.__init__ = recording
+    try:
+        t0 = time.perf_counter()
+        results, counts = count_launches(dev, lambda: engine.submit_many(vols[:3], precisions=precisions))
+        many_s = time.perf_counter() - t0
+    finally:
+        RequestScheduler.__init__ = init
+    stats = made[0].stats
+    print(f"submit_many: {len(results)} results in {many_s * 1e3:.3f} ms host clock ({card}); resolutions "
+          f"{stats.resolutions}, batches {stats.batches}; launches {counts}")
+    check(len(made) == 1 and stats.resolutions == len(set(precisions)) and stats.conserved(),
+          f"submit_many resolved {stats.resolutions} signatures, {len(set(precisions))} distinct")
+    implied = []
+    for i, (res, precision) in enumerate(zip(results, precisions)):
+        rec = res.record
+        check(rec.extra.get("request_index") == i and rec.status == "ok" and rec.precision == (precision or "fp32")
+              and rec.executor == fused, f"submit_many result {i}: {rec.status} {rec.precision} {rec.executor}")
+        implied.append(implied_launches(rec, cfg, mcfg, shape, cube, overlap) if cuda else {})
+        again = engine.submit(vols[i], precision=precision)
+        check(torch.equal(res.segmentation, again.segmentation), f"submit_many result {i} differs from submit's")
+    expect = summed(implied)
+    check(counts == expect, f"submit_many launches {counts}, the served requests imply {expect}")
+    out["submit_many"] = counts
+
+    print("-- 11c: the load simulator's steady preset, 60 virtual seconds, executed on reference_engine")
+    sim_engine = simulator.reference_engine(device=dev)
+    cfg_sim = simulator.preset("steady", horizon_s=60.0)
+    cfg_sim.execute = True
+    t0 = time.perf_counter()
+    rep, counts = count_launches(dev, lambda: simulator.simulate(sim_engine, cfg_sim))
+    wall = time.perf_counter() - t0
+    summary = rep.summary()
+    print(f"simulator steady: {rep.arrived} arrivals, {summary['requests']}, batches {summary['batches']}, in "
+          f"{wall:.3f} s wall ({card}); virtual latency ms {summary['latency_ms']}; launches {counts}")
+    check(rep.scheduler.stats.conserved(), "the simulated run is not conserved")
+    garbage_ids = set()
+    for c in rep.completions:
+        rec = c.record
+        if rec.mode == "none":
+            garbage_ids.add(c.id)
+            check(rec.status == "fail" and rec.fail_type == "permanent_fault", f"simulated garbage {c.id}: {rec.fail_type}")
+        else:
+            check(rec.status == "ok" and rec.executor == fused,
+                  f"simulated request {c.id}: {rec.status} {rec.executor} {rec.fail_type} {rec.extra.get('error')}")
+    check(bool(garbage_ids) or rehearsal, "the simulated trace had no garbage request")
+    check(not cuda or (counts["K1"] > 0 and counts["K1r"] > 0), f"the simulator launched {counts}")
+    out["simulate"] = counts
+    return out
+
+
 def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err, k4_err, k4_row, views,
                  k1r_rows, k1r_err, k2r_rows, k2r_err, k2z_rows, k2z_err) -> dict:
     """Per-forward numbers of K1, K2 and K5: one gwm_light forward at 256^3,
@@ -2496,6 +2722,7 @@ def main(argv=None) -> int:
         phase_subvolume(dev, size, rehearsal)
         phase_sharded_parity(dev, size)
         phase_sharded(dev, size, rehearsal)
+        phase_queued(dev, size, rehearsal)
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
     rows, seg_rows = phase_times(dev, card, size)
@@ -2522,6 +2749,9 @@ def main(argv=None) -> int:
     launches["sharded"] = phase_sharded(dev, size, rehearsal)
     check(launches["sharded"]["K2z"] > 0, "K2z was not launched on its main path")
     k2z_rows = phase_sharded_times(dev, card, size)
+    launches["queued"] = phase_queued(dev, size, rehearsal)
+    for k in ("K1", "K1r", "K2"):
+        check(launches["queued"]["drain"][k] > 0, f"{k} was not launched on the queued path")
     print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err, k4_err, lm["k4_row"], views,
                                   k1r_rows, k1r_err, k2r_rows, k2r_err, k2z_rows, k2z_err)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -10,8 +10,13 @@ SegmentationEngine — picks full-volume streaming vs the sub-volume
 failsafe per request from the memory budget (one H100's device memory by
 default), at the request's precision policy, runs the pipeline on the
 engine's device with the weights prepared once per policy, and logs each
-request's telemetry. The queued entry points (``submit_async``,
-``drain``, ``submit_many``) come with the scheduler slice of the port.
+request's telemetry. ``submit`` serves one volume synchronously; the
+queued entry points — ``submit_async`` and ``drain``, and
+``submit_many``'s dispatch — go through the continuous-batching request
+scheduler (serving/scheduler.py): a bounded queue with typed
+``QueueFullError`` backpressure, priority and deadline classes,
+budget-priced admission with shed-to-subvolume demotion, and grouping of
+requests that share a resolved signature.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from repro_torch.core import spatial_shard
 from repro_torch.kernels import quantize
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.scheduler import DEFAULT_CLASSES, PriorityClass, RequestScheduler, SchedulerConfig
 from repro_torch.telemetry.budget import BudgetExceeded, MemoryBudget
 from repro_torch.telemetry.record import TelemetryLog
 
@@ -230,6 +236,7 @@ class SegmentationEngine:
         if self.devices and self.devices > 1:
             spatial_shard.mesh_for(self.devices, self.device.type)
         self.log = TelemetryLog()
+        self._scheduler: Optional[RequestScheduler] = None  # created on first use
 
     def _params_for(self, precision: str):
         """The weight tree in ``precision`` storage, prepared once per
@@ -275,12 +282,21 @@ class SegmentationEngine:
         executor: Optional[str] = None,
         devices: Optional[int] = None,
         precision: Optional[str] = None,
+        volume_shape: Optional[tuple] = None,
     ) -> pl.PipelineResult:
-        """Resolve the request's defaults, run the pipeline, log telemetry."""
+        """The serve path behind ``submit`` and the scheduler: resolve the
+        request's defaults, run the pipeline, log telemetry (the scheduler
+        calls it per batch member, so its fault isolation wraps exactly
+        one request). ``volume_shape`` overrides the engine's conform
+        target for this request — the scheduler's ``native_shapes`` mode
+        serves each request at the geometry admission priced; ``None``
+        keeps the engine's."""
         prec = precision or self.precision
-        mode = mode or self.pick_mode(self.cfg.volume_shape, prec)
+        shape = tuple(volume_shape) if volume_shape else self.cfg.volume_shape
+        mode = mode or self.pick_mode(shape, prec)
         cfg = dataclasses.replace(
             self.cfg,
+            volume_shape=shape,
             mode=mode,
             budget=self.budget,
             executor=executor or self.cfg.executor,
@@ -292,3 +308,101 @@ class SegmentationEngine:
         )
         self.log.append(res.record)
         return res
+
+    # ---- queued serving (serving/scheduler.py) --------------------------
+
+    def scheduler(self, scheduler_cfg=None, **kwargs):
+        """The engine's request scheduler, created on first use (pass
+        ``scheduler_cfg`` or keyword arguments then; see
+        ``RequestScheduler``). ``submit_async`` and ``drain`` go through
+        it. Raises if a configuration is passed after it exists: returning
+        the old one would leave the caller believing their admission
+        limits are active."""
+        if self._scheduler is None:
+            self._scheduler = RequestScheduler(self, scheduler_cfg, **kwargs)
+        elif scheduler_cfg is not None or kwargs:
+            raise ValueError(
+                "engine.scheduler() was already created (a prior "
+                "submit_async/scheduler call); configuration must be "
+                "passed on first use"
+            )
+        return self._scheduler
+
+    def submit_async(
+        self,
+        vol,
+        *,
+        priority: str = "standard",
+        mode: Optional[str] = None,
+        executor: Optional[str] = None,
+        devices: Optional[int] = None,
+        precision: Optional[str] = None,
+    ) -> int:
+        """Enqueue one request with the scheduler and return its id;
+        nothing runs until ``drain``. Raises ``QueueFullError`` when the
+        queue is at its depth limit."""
+        return self.scheduler().submit(
+            vol, priority=priority, mode=mode, executor=executor, devices=devices, precision=precision
+        )
+
+    def drain(self) -> list:
+        """Serve every queued request (grouping, budget admission, priority
+        order) and return the new ``Completion``s in id order, each with
+        its outcome (completed | demoted | rejected), its stamped record
+        and its pipeline result."""
+        return self.scheduler().drain()
+
+    def submit_many(
+        self,
+        vols: list,
+        *,
+        modes: Optional[list] = None,
+        executors: Optional[list] = None,
+        devices: Optional[list] = None,
+        precisions: Optional[list] = None,
+    ) -> list[pl.PipelineResult]:
+        """Serve several volumes with a per-request mode, executor, device
+        count and precision (``None`` entries keep the engine's defaults),
+        and return their results in submission order.
+
+        Dispatch goes through a scheduler of its own with deadline-free
+        classes, an unbounded queue, no admission budget and no demotion,
+        so every request runs, as a loop of ``submit`` would: requests
+        sharing a resolved signature are served back to back as one group,
+        the signature resolved and priced once per unique combination. A
+        request that raises (a garbage volume, a kernel that fails) gives
+        a result with ``segmentation=None`` and a record typed by
+        serving/errors.py while the rest complete. Each record carries
+        the scheduler's stamps and its submission index in
+        ``extra["request_index"]``."""
+        n = len(vols)
+        for name, given in (("modes", modes), ("executors", executors), ("devices", devices),
+                            ("precisions", precisions)):
+            if given is not None and len(given) != n:
+                raise ValueError(f"{name} must match len(vols): {len(given)} != {n}")
+        modes = modes if modes is not None else [None] * n
+        execs = executors if executors is not None else [None] * n
+        devs = devices if devices is not None else [None] * n
+        precs = precisions if precisions is not None else [None] * n
+        sched = RequestScheduler(
+            self,
+            SchedulerConfig(
+                max_queue_depth=None,
+                admission_hbm_bytes=None,
+                max_batch_requests=max(n, 1),
+                allow_demotion=False,
+                classes={
+                    name: PriorityClass(name, c.priority, deadline_s=None) for name, c in DEFAULT_CLASSES.items()
+                },
+            ),
+        )
+        for i, vol in enumerate(vols):
+            sched.submit(vol, mode=modes[i], executor=execs[i], devices=devs[i], precision=precs[i])
+        results = []
+        for i, comp in enumerate(sched.drain()):
+            res = comp.result
+            if res is None:  # a typed failure the scheduler synthesized
+                res = pl.PipelineResult(segmentation=None, record=comp.record)
+            res.record.extra["request_index"] = i
+            results.append(res)
+        return results

@@ -1,8 +1,10 @@
 """K1-K5, K1r, K2r and K2z and their paths on the CUDA card (the sharded
 executors on one card's device list included), against their plain versions
-on the same card (and a train step and LM decoding against the CPU). Marked
-``gpu``: without a card every test skips (the fixture decides, at run
-time). Run on a machine with an H100:
+on the same card (and a train step and LM decoding against the CPU), and
+queued serving through the request scheduler. Marked ``gpu``: without a
+card every test skips (the fixture decides, at run time), but the one that
+pins the bf16 gate's step, which needs no card. Run on a machine with an
+H100:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -567,7 +569,21 @@ def test_lm_engine_on_the_card_matches_the_cpu(cuda):
 
 # ----------------------------------------------- K1r and the reduced paths ---
 
-BF16_STEP = 2.0**-8  # one bf16 step at the layer's largest magnitude
+def _bf16_step(top):
+    """One bf16 step at magnitude ``top``: the spacing of bf16 values in
+    its binade [2^e, 2^(e+1)), 2^(e - 7) (chip_smoke.bf16_step)."""
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+@pytest.mark.parametrize("top,step", [(29.88, 0.125), (16.0, 0.125), (15.99, 0.0625), (1.0, 2.0**-7),
+                                      (0.75, 2.0**-8), (0.0, 0.0)])
+def test_bf16_step_is_the_spacing_at_the_magnitude(top, step):
+    """Runs on the CPU too: the gate of the bf16 card tests, one step of
+    the binade of the largest magnitude (the F3 case's 29.88: 0.125)."""
+    assert _bf16_step(top) == step
+    if top > 0:  # the next bf16 value above the binade's base is one step up
+        base = torch.tensor(2.0 ** math.floor(math.log2(top)), dtype=torch.bfloat16)
+        assert float(torch.nextafter(base, torch.tensor(math.inf, dtype=torch.bfloat16)) - base) == step
 
 
 def _reduced_inputs(seed, shape, cin, cout, wdtype, device):
@@ -606,7 +622,9 @@ def test_reduced_kernel_matches_plain_version(cuda, cout, cin, dilation, wdtype,
     assert (conv_kernel.launches - before[0], conv_kernel.reduced_launches - before[1]) == (0, 1)
     assert got.dtype == torch.bfloat16 and got.shape == shape + (cout,)
     expect = ref.dilated_conv3d(x, w, b, **kw)
-    assert float((got.float() - expect.float()).abs().max()) <= BF16_STEP * float(expect.float().abs().max())
+    err, gate = float((got.float() - expect.float()).abs().max()), _bf16_step(float(expect.float().abs().max()))
+    print(f"max abs error {err}, gate {gate} (largest {float(expect.float().abs().max())})")  # shown by pytest -rP
+    assert err <= gate
 
 
 @pytest.mark.parametrize(
@@ -631,7 +649,7 @@ def test_reduced_kernel_chunks_and_unfused(cuda, shape, cin, cout, dilation):
             got = conv_kernel.dilated_conv3d(x, w, b, **kw)
             torch.cuda.synchronize()
             expect = ref.dilated_conv3d(x, w, b, **kw)
-            assert float((got.float() - expect.float()).abs().max()) <= BF16_STEP * float(expect.float().abs().max())
+            assert float((got.float() - expect.float()).abs().max()) <= _bf16_step(float(expect.float().abs().max()))
 
 
 @pytest.mark.parametrize("cin", [5, 64])
@@ -648,7 +666,7 @@ def test_reduced_kernel_unaligned_base(cuda, cin):
     got = conv_kernel.dilated_conv3d(x1, w, b, **kw)
     torch.cuda.synchronize()
     expect = ref.dilated_conv3d(x, w, b, **kw)
-    assert float((got.float() - expect.float()).abs().max()) <= BF16_STEP * float(expect.float().abs().max())
+    assert float((got.float() - expect.float()).abs().max()) <= _bf16_step(float(expect.float().abs().max()))
 
 
 def test_reduced_kernel_layout_and_refusals(cuda):
@@ -783,6 +801,76 @@ def test_subvolume_and_reduced_requests_launch_what_they_imply(cuda):
     assert res.segmentation.shape == (48, 48, 48)
 
 
+# ------------------------------------------------------- queued serving ---
+
+
+def _queued_engine(cuda):
+    from repro_torch.serving.engine import SegmentationEngine
+
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = _params_with_bn(cfg, 21, cuda)
+    pc = pipeline.PipelineConfig(model=cfg, volume_shape=(32, 32, 32), min_component_size=8)
+    vols = [mri.generate(torch.Generator().manual_seed(22 + i), mri.SyntheticMRIConfig(shape=(32, 32, 32)),
+                         device=cuda)[0] for i in range(3)]
+    return SegmentationEngine(params, pc, device=cuda), vols
+
+
+@pytest.mark.parametrize(
+    "executor,precision,ran,counter",
+    [(None, None, "cuda_fused", "K1"), ("cuda_megakernel", None, "cuda_megakernel", "K2"),
+     (None, "bf16", "cuda_fused", "K1r")],
+)
+def test_drained_requests_equal_submit(cuda, executor, precision, ran, counter):
+    """submit_async + drain at 32^3 through the scheduler: each
+    segmentation equal to submit's of the same volume, the record stamped
+    with the executor that ran, its precision and the scheduler's fields,
+    and the kernel launched once a layer (a segment) of each request."""
+    engine, vols = _queued_engine(cuda)
+    counters = {"K1": lambda: conv_kernel.launches, "K1r": lambda: conv_kernel.reduced_launches,
+                "K2": lambda: mk.launches}
+    per = (len(mk.plan_for_config(engine.cfg.model, (32, 32, 32)).segments) if counter == "K2"
+           else len(engine.cfg.model.dilations))
+    ids = [engine.submit_async(v, priority=p, executor=executor, precision=precision)
+           for v, p in zip(vols, ["batch", "interactive", "interactive"])]
+    before = counters[counter]()
+    comps = engine.drain()
+    torch.cuda.synchronize()
+    assert counters[counter]() - before == per * len(vols)
+    assert [c.id for c in comps] == ids
+    assert engine.scheduler().stats.batches == 2 and engine.scheduler().stats.conserved()
+    for c, v in zip(comps, vols):
+        rec = c.record
+        assert (c.outcome, rec.status, rec.executor) == ("completed", "ok", ran), rec
+        assert rec.precision == (precision or "fp32") and rec.batch_size == (1 if c.id == ids[0] else 2)
+        assert rec.queue_wait_s + rec.service_s == pytest.approx(c.finish_s - c.arrival_s)
+        expect = engine.submit(v, mode=rec.mode, executor=rec.executor, precision=rec.precision)
+        assert torch.equal(c.result.segmentation, expect.segmentation)
+
+
+def test_a_kernel_that_fails_in_a_drained_request_is_a_permanent_fault(cuda, monkeypatch):
+    """A K1 launch that returns an error inside a drained request becomes
+    that request's typed permanent_fault, the error's text in its record,
+    while the other request (under cuda_megakernel) completes: the fault
+    isolation chip_smoke.py's queued phase guards against passing on as a
+    served failure."""
+    engine, vols = _queued_engine(cuda)
+    lib, launch, supports = conv_kernel._kernel("halo")
+
+    def failing(*args):
+        return 2  # cudaErrorMemoryAllocation
+
+    monkeypatch.setattr(conv_kernel, "_kernel", lambda variant: (lib, failing, supports))
+    bad = engine.submit_async(vols[0])
+    good = engine.submit_async(vols[1], executor="cuda_megakernel")
+    comps = {c.id: c for c in engine.drain()}
+    rec = comps[bad].record
+    assert (comps[bad].outcome, rec.status, rec.fail_type) == ("completed", "fail", "permanent_fault")
+    assert rec.extra["error"].startswith("RuntimeError: dilated_conv3d (halo) kernel launch failed")
+    assert comps[bad].result is None and rec.executor == "cuda_fused"
+    assert comps[good].record.status == "ok" and comps[good].result.segmentation is not None
+    assert engine.scheduler().stats.permanent_faults == 1
+
+
 # ----------------------------------------------------------------- K2r ---
 
 
@@ -798,7 +886,7 @@ def _lp_gap(got, expect):
     what = f"max diff {float(diff.max())}, equal {equal}, largest {top}, elements {diff.numel()}"
     if got.dtype == torch.int8:
         return float(diff.max()) <= 1 and equal >= 0.999, what
-    return float(diff.max()) <= 2.0 ** (math.floor(math.log2(top)) - 7), what
+    return float(diff.max()) <= _bf16_step(top), what
 
 
 def _poisoned(t, region):

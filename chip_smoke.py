@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's segmentation, training and LM-serving main
 paths on one CUDA card, and segmentation's sub-volume mode and bf16 and
-int8w policies (through K1r and K2r), its Z-sharded executors and its
-queued serving through the request scheduler.
+int8w policies (through K1r and K2r), its Z-sharded executors, its
+queued serving through the request scheduler, and the resilience layer
+and artifact cache behind it.
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # tiny shapes, plain paths, CPU
@@ -212,14 +213,40 @@ staging) a segment. Phases, each printed on lines of its own:
             11c simulate(reference_engine("cuda"), preset("steady",
                 horizon_s=60)) with execute=True: conserved, every
                 request but the garbage lane ok under cuda_fused
-12. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r,
+12. resilience and the artifact cache, phase 11's configuration, each
+            line with the card's name and power limit:
+            12a an ArtifactCache behind the scheduler: one volume queued 3
+                times and one other, drained: exactly 2 executions, 2
+                coalesced with cache_hit, launches exactly what the 2
+                records imply, each segmentation equal to submit's and no
+                two completions (nor the cache) sharing storage; the volume
+                again: a hit at admission with 0 launches; a permanent
+                fault injected on a third volume, negative-cached, its twin
+                a negative hit with 0 launches; quarantined_served 0;
+                content_hash ms of a 256^3 volume on the card; the cache's
+                device bytes beside its modeled bytes
+            12b a transient FaultPlan on cuda_megakernel for 1 s of the
+                scheduler's clock (time.monotonic()), retries and a breaker
+                (trip_after 2, cooldown 1.5 s), 6 requests under
+                cuda_megakernel: the faults raise before any launch and are
+                all injected ones; served in order, cuda_fused (K1) while
+                the breaker is open, then a half-open probe and the rest
+                under cuda_megakernel (K2); transitions open, half_open,
+                closed; faulted == recovered, retries >= 2; launches
+                exactly what the records imply; each segmentation agreeing
+                with submit's under its executor on >= 99.99 %
+            12c two submits of one raw volume under a ConformMemo: one hit,
+                equal segmentations, the memo's volume unchanged; the
+                preprocessing ms of the miss, the hit and a memo-less
+                conform
+13. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r,
             K2z)
-13. ok      the last line, {"ok": true, "device": {...}}
+14. ok      the last line, {"ok": true, "device": {...}}
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line. Without a CUDA device (and without --cpu-rehearsal) it exits 1.
 --cpu-rehearsal runs phases 1, 4, 5, 7b, 7c, 8c (TinyLlama's smoke
-config), 9b, 9e, 9c (cube 8, overlap 4), 10a, 10b and 11 at a tiny size on the CPU with
+config), 9b, 9e, 9c (cube 8, overlap 4), 10a, 10b, 11 and 12 at a tiny size on the CPU with
 the plain versions, to find wrong paths and shapes without a card; it
 never prints the ok line.
 """
@@ -259,7 +286,10 @@ from repro_torch.kernels import megakernel as k2  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving.engine import LMEngine, Request, SegmentationEngine  # noqa: E402
+from repro_torch.serving import cache as cache_mod  # noqa: E402
 from repro_torch.serving import simulator  # noqa: E402
+from repro_torch.serving.cache import ArtifactCache, ConformMemo  # noqa: E402
+from repro_torch.serving.resilience import BreakerConfig, FaultPlan, FaultRule, ResiliencePolicy, RetryPolicy  # noqa: E402
 from repro_torch.serving.scheduler import RequestScheduler, SchedulerConfig  # noqa: E402
 from repro_torch.telemetry.budget import MemoryBudget  # noqa: E402
 from repro_torch.training import checkpoint, losses, optimizer, trainer  # noqa: E402
@@ -2461,6 +2491,218 @@ def phase_queued(dev, size: int, rehearsal: bool) -> dict:
     return out
 
 
+# ------------------------------- phase 12: resilience and the artifact cache ---
+
+
+def cuda_bytes(dev) -> int:
+    """Bytes the caching allocator holds for live tensors (0 on the CPU)."""
+    synchronize(dev)
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def owned(comps) -> bool:
+    """Whether no two completions' segmentations share storage."""
+    ptrs = [c.result.segmentation.data_ptr() for c in comps]
+    return len(set(ptrs)) == len(ptrs)
+
+
+def phase_resilience(dev, size: int, rehearsal: bool) -> dict:
+    t_phase = time.perf_counter()
+    cube, overlap = (8, 4) if rehearsal else (CUBE, OVERLAP)
+    card = card_line(rehearsal)
+    print(f"== phase 12: resilience and the artifact cache behind the scheduler at {size}^3 (card: {card})")
+    cfg, mcfg, params, mparams, vols, _ = served_models(dev, size)
+    shape = (size,) * 3
+    gen = torch.Generator().manual_seed(SEED + 12)
+    vols = vols + [mri.generate(gen, mri.SyntheticMRIConfig(shape=shape), device=dev)[0] for _ in range(2)]
+    pc = PipelineConfig(name="gwm_light", model=cfg, volume_shape=shape, use_cropping=True, cube=cube, overlap=overlap)
+
+    def engine_for(pcfg=pc):
+        return SegmentationEngine(params, pcfg, mask_model=(mparams, mcfg), device=dev)
+
+    cuda = dev.type == "cuda"
+    fused = "cuda_fused" if cuda else "torch"
+    zero = {"K1": 0, "K1r": 0, "K2": 0, "K2r": 0, "K2z": 0}
+    out = {}
+    t_12a = time.perf_counter()
+    print(f"set-up (the served models and two more {size}^3 volumes) took {t_12a - t_phase:.1f} s")
+
+    print("-- 12a: an ArtifactCache: one volume queued 3 times and one other (interactive, fp32), then the first "
+          "again, then a permanent fault on a third volume and its twin")
+    a, b, c = vols[0], vols[3], vols[4]
+    engine = engine_for()
+    cache = ArtifactCache()
+    poison = FaultPlan(seed=SEED, rules=(FaultRule(kind="permanent", rate=1.0, priority="batch"),))
+    sched = engine.scheduler(SchedulerConfig(max_batch_requests=4), cache=cache, fault_plan=poison)
+    base = cuda_bytes(dev)
+    ids, admit_ms = [], []
+    for v in [v.clone() for v in (a, a, a, b)]:
+        synchronize(dev)
+        t0 = time.perf_counter()
+        ids.append(engine.submit_async(v, priority="interactive"))
+        admit_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"admission with a cache (submit_async: content_hash of the {size}^3 fp32 volume on the {dev.type}, a copy "
+          f"to the host and blake2b, then the queue): {[round(x, 3) for x in admit_ms]} ms, median "
+          f"{statistics.median(admit_ms):.3f} (host clock; {card})")
+    out["hash_ms"] = statistics.median(admit_ms)
+    comps, counts = count_launches(dev, engine.drain)
+    st = sched.stats
+    by_id = {x.id: x for x in comps}
+    executed = [x for x in comps if x.outcome == "completed"]
+    coalesced = [x for x in comps if x.outcome == "coalesced"]
+    print(f"drained {len(comps)}: {[(x.id, x.outcome, x.record.cache_hit, x.record.executor) for x in comps]}; "
+          f"launches {counts}; cache {cache.summary()} ({card})")
+    check(len(executed) == 2 and len(coalesced) == 2 and all(x.record.cache_hit for x in coalesced)
+          and st.coalesced == 2 and st.conserved(), f"single flight: {st}")
+    check(all(x.record.status == "ok" and x.record.executor == fused for x in comps),
+          f"the drained requests: {[(x.record.status, x.record.executor, x.record.fail_type) for x in comps]}")
+    expect = summed(implied_launches(x.record, cfg, mcfg, shape, cube, overlap) for x in executed) if cuda else zero
+    check(counts == expect, f"drained launches {counts}, the two executed records imply {expect}")
+    out["coalesced"] = counts
+    want = {id(a): engine.submit(a).segmentation, id(b): engine.submit(b).segmentation}
+    of = {ids[0]: a, ids[1]: a, ids[2]: a, ids[3]: b}
+    check(all(torch.equal(x.result.segmentation, want[id(of[x.id])]) for x in comps),
+          "a drained segmentation differs from submit's of the same volume")
+    entries = [e.result.segmentation for e in cache.entries.values() if e.result is not None]
+    check(owned(comps) and len({t.data_ptr() for t in entries} | {x.result.segmentation.data_ptr() for x in comps})
+          == len(entries) + len(comps), "two completions, or a completion and the cache, share a segmentation")
+    held = cuda_bytes(dev) - base
+    print(f"the cache holds {len(entries)} segmentations: {sum(t.numel() * t.element_size() for t in entries)} "
+          f"bytes of int32 on the {dev.type} (memory_allocated above the drain's start: {held}, with the four "
+          f"completions' own {sum(x.result.segmentation.numel() * 4 for x in comps)}); modeled bytes_stored "
+          f"{cache.stats.bytes_stored} (1 byte a voxel) ({card})")
+    out["cache_device_bytes"] = sum(t.numel() * t.element_size() for t in entries)
+    out["cache_modeled_bytes"] = cache.stats.bytes_stored
+
+    hit_id, counts = count_launches(dev, lambda: engine.submit_async(a.clone(), priority="interactive"))
+    hit = {x.id: x for x in engine.drain()}[hit_id]
+    print(f"the same volume again: outcome {hit.outcome} cache_hit {hit.record.cache_hit} service "
+          f"{hit.record.service_s * 1e3:.3f} ms (modeled verify); launches {counts} ({card})")
+    check(counts == zero and hit.outcome == "completed" and hit.record.cache_hit and hit.record.status == "ok"
+          and st.cache_hits == 1, f"the hit launched {counts} or was not a hit: {hit.outcome} {st}")
+    check(torch.equal(hit.result.segmentation, want[id(a)]) and owned([hit] + comps)
+          and all(hit.result.segmentation.data_ptr() != t.data_ptr() for t in entries),
+          "the hit's segmentation differs from submit's or is shared")
+    check(cache.stats.quarantined_served == 0, "the cache served unverified bytes")
+    out["hit"] = counts
+
+    def poisoned_then_twin():
+        first = engine.submit_async(c.clone(), priority="batch")
+        engine.drain()
+        return first, engine.submit_async(c.clone(), priority="batch")
+
+    (bad_id, twin_id), counts = count_launches(dev, poisoned_then_twin)
+    tail = {x.id: x for x in engine.drain()}
+    bad = next(x for x in sched.completions if x.id == bad_id)
+    twin = tail[twin_id]
+    print(f"permanent fault: {bad.record.fail_type} ({bad.record.extra.get('error')}); its twin: outcome "
+          f"{twin.outcome} {twin.record.fail_type} cache_hit {twin.record.cache_hit} {twin.record.extra}; launches "
+          f"{counts}; cache {cache.summary()} ({card})")
+    check(bad.record.fail_type == "permanent_fault" and "injected permanent" in bad.record.extra.get("error", ""),
+          f"the poisoned request: {bad.record.fail_type} {bad.record.extra}")
+    check(twin.record.fail_type == "permanent_fault" and twin.record.cache_hit
+          and twin.record.extra.get("negative_cache") and cache.stats.negative_hits == 1,
+          f"the twin did not complete from the negative entry: {twin.record}")
+    check(counts == zero, f"the injected fault and the negative hit launched {counts}")
+    check(st.conserved() and cache.stats.quarantined_served == 0, f"12a: {st}")
+    out["negative"] = counts
+    del entries  # the cache's own references only, then measure what they hold
+    before = cuda_bytes(dev)
+    cache.entries.clear()
+    freed = before - cuda_bytes(dev)
+    print(f"clearing the cache's entries frees {freed} bytes on the {dev.type} ({card})")
+    out["cache_freed_bytes"] = freed
+    t_12b = time.perf_counter()
+    print(f"12a took {t_12b - t_12a:.1f} s ({card})")
+
+    print("-- 12b: the breaker on real kernels: transient faults on cuda_megakernel for 1 s from the scheduler's "
+          "clock, retry 3 attempts (backoff 0.01 s), breaker trip_after 2, cooldown 1.5 s")
+    engine = engine_for()
+    t0 = time.monotonic()  # the scheduler's production clock
+    window, cooldown = 1.0, 1.5
+    policy = ResiliencePolicy(retry=RetryPolicy(max_attempts=3, backoff_base_s=0.01, seed=SEED),
+                              breaker=BreakerConfig(trip_after=2, cooldown_s=cooldown))
+    plan = FaultPlan(seed=SEED, rules=(FaultRule(kind="transient", rate=1.0, executor_substr="megakernel", t0=t0,
+                                                 t1=t0 + window),))
+    sched = engine.scheduler(SchedulerConfig(max_batch_requests=1), resilience=policy, fault_plan=plan)
+    check(sched.clock.now() >= t0, "the scheduler's clock is not time.monotonic()")
+    pool = [vols[0], vols[3]]
+    asked = {engine.submit_async(pool[i % 2], executor="cuda_megakernel"): pool[i % 2] for i in range(6)}
+    comps, counts = count_launches(dev, engine.drain)
+    states = [tr["state"] for tr in sched.breaker.transitions]
+    if "closed" not in states:  # every request served while open: one more after the cooldown probes
+        time.sleep(max(0.0, sched.breaker.entries[next(iter(sched.breaker.entries))].opened_s + cooldown
+                       - time.monotonic()) + 0.01)
+        asked[engine.submit_async(pool[0], executor="cuda_megakernel")] = pool[0]
+        more, extra = count_launches(dev, engine.drain)
+        comps += more
+        counts = summed([counts, extra])
+        states = [tr["state"] for tr in sched.breaker.transitions]
+    st = sched.stats
+    rungs: dict = {}
+    for x in comps:
+        rungs[x.record.executor] = rungs.get(x.record.executor, 0) + 1
+    fails = [r for r in engine.log.records if r.status == "fail"]
+    print(f"breaker transitions {sched.breaker.transitions}; served by executor {rungs}; retries {st.retries}, "
+          f"transient faults {st.transient_faults}, faulted {st.faulted_requests}, recovered "
+          f"{st.recovered_requests}; launches {counts} ({card})")
+    check(states == ["open", "half_open", "closed"], f"breaker transitions {states}")
+    check(all("injected transient" in r.extra.get("error", "") and r.executor == "cuda_megakernel" for r in fails)
+          and len(fails) == st.transient_faults >= 2, f"a fault that was not injected: {[r.extra for r in fails]}")
+    check(not cuda or all(r.executor in ("cuda_fused", "cuda_megakernel") for r in engine.log.records),
+          f"an attempt ran off the card's ladder: {[r.executor for r in engine.log.records]}")
+    check(st.faulted_requests == st.recovered_requests >= 2 and st.retries >= 2 and st.conserved()
+          and all(x.record.status == "ok" for x in comps), f"12b: {st}")
+    # in the order served: cuda_fused while the breaker is open, then the
+    # half-open probe and every later request under cuda_megakernel
+    order = [x.record.executor for x in sorted(comps, key=lambda x: x.finish_s)]
+    k = order.count("cuda_fused")
+    print(f"served in order: {order}")
+    check(order == ["cuda_fused"] * k + ["cuda_megakernel"] * (len(order) - k) and 1 <= k < len(order),
+          f"served in order {order}")
+    expect = summed(implied_launches(x.record, cfg, mcfg, shape, cube, overlap) for x in comps) if cuda else zero
+    check(counts == expect, f"12b launched {counts}, the served records imply {expect} (the faults none)")
+    check(not cuda or (counts["K1"] > 0 and counts["K2"] > 0), f"12b launched {counts}")
+    out["breaker"] = {"launches": counts, "served": rungs}
+    plain = {}
+    for x in comps:
+        vol = asked[x.id]
+        key = (id(vol), x.record.executor)
+        if key not in plain:
+            plain[key] = engine.submit(vol, executor=x.record.executor).segmentation
+        agree = float((plain[key] == x.result.segmentation).float().mean())
+        check(agree >= ARGMAX_AGREE, f"request {x.id} agrees with submit under {x.record.executor} on {agree:.6%}")
+    print(f"each of the {len(comps)} segmentations agrees with submit's under its executor on >= "
+          f"{ARGMAX_AGREE:.2%} of voxels ({len(plain)} submits, one per volume and executor)")
+    t_12c = time.perf_counter()
+    print(f"12b took {t_12c - t_12b:.1f} s, at least the breaker's {cooldown:.1f}-s cooldown of it ({card})")
+
+    print("-- 12c: the conform memo: two submits of one volume under PipelineConfig(conform_memo=ConformMemo())")
+    memo = ConformMemo()
+    engine = engine_for(dataclasses.replace(pc, conform_memo=memo))
+    before = cuda_bytes(dev)
+    first = engine.submit(vols[2])
+    second = engine.submit(vols[2])
+    memo_bytes = sum(t.numel() * t.element_size() for t in memo.entries.values())
+    warm = engine_for().submit(vols[2]).record.times.preprocessing
+    print(f"memo hits {memo.hits} misses {memo.misses}; preprocessing of the raw {tuple(vols[2].shape)} volume: "
+          f"{first.record.times.preprocessing * 1e3:.3f} ms (memo miss: one hash, the conform) then "
+          f"{second.record.times.preprocessing * 1e3:.3f} ms (memo hit: hash and lookup); without a memo, after "
+          f"both, {warm * 1e3:.3f} ms (conform); the memo holds {memo_bytes} bytes on the {dev.type} "
+          f"(memory_allocated +{cuda_bytes(dev) - before} with the two results) ({card})")
+    check((memo.hits, memo.misses) == (1, 1) and torch.equal(first.segmentation, second.segmentation),
+          "the conform memo did not hit once, or the segmentations differ")
+    (held_vol,) = memo.entries.values()
+    check(torch.equal(held_vol, conform.conform(torch.as_tensor(vols[2], dtype=torch.float32), shape)),
+          "the memoised conformed volume changed in serving")
+    out["memo_ms"] = (first.record.times.preprocessing * 1e3, second.record.times.preprocessing * 1e3, warm * 1e3)
+    out["memo_bytes"] = memo_bytes
+    t_end = time.perf_counter()
+    out["seconds"] = t_end - t_phase
+    print(f"12c took {t_end - t_12c:.1f} s; phase 12 took {t_end - t_phase:.1f} s, its set-up included ({card})")
+    return out
+
+
 def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err, k4_err, k4_row, views,
                  k1r_rows, k1r_err, k2r_rows, k2r_err, k2z_rows, k2z_err) -> dict:
     """Per-forward numbers of K1, K2 and K5: one gwm_light forward at 256^3,
@@ -2723,6 +2965,7 @@ def main(argv=None) -> int:
         phase_sharded_parity(dev, size)
         phase_sharded(dev, size, rehearsal)
         phase_queued(dev, size, rehearsal)
+        phase_resilience(dev, size, rehearsal)
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
     rows, seg_rows = phase_times(dev, card, size)
@@ -2752,6 +2995,7 @@ def main(argv=None) -> int:
     launches["queued"] = phase_queued(dev, size, rehearsal)
     for k in ("K1", "K1r", "K2"):
         check(launches["queued"]["drain"][k] > 0, f"{k} was not launched on the queued path")
+    launches["resilience"] = phase_resilience(dev, size, rehearsal)
     print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err, k4_err, lm["k4_row"], views,
                                   k1r_rows, k1r_err, k2r_rows, k2r_err, k2z_rows, k2z_err)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -74,6 +74,14 @@ class PipelineConfig:
     min_component_size: int = 64
     postprocess: bool = True
     budget: Optional[MemoryBudget] = None
+    # optional content-keyed memo for the conform stage (e.g.
+    # serving.cache.ConformMemo): any object with get(vol, out_shape) ->
+    # conformed-or-None and put(vol, out_shape, conformed), keyed on the
+    # raw volume as the caller passed it. The memo holds the conformed
+    # [0, 1] fp32 volume on the device *before* the precision cast, so one
+    # conform can feed requests under different storage policies; no
+    # later stage writes into it.
+    conform_memo: Optional[Any] = None
 
 
 @dataclasses.dataclass
@@ -185,8 +193,14 @@ def run(
     try:
         # --- Stage 1: preprocessing (to the device, conform, policy cast) --
         t0 = _now()
-        vol = torch.as_tensor(vol, dtype=torch.float32, device=dev)
-        x = conform_mod.conform(vol, cfg.volume_shape, voxel_size)
+        x = None
+        if cfg.conform_memo is not None:
+            x = cfg.conform_memo.get(vol, cfg.volume_shape)
+        if x is None:
+            x = conform_mod.conform(torch.as_tensor(vol, dtype=torch.float32, device=dev), cfg.volume_shape, voxel_size)
+            if cfg.conform_memo is not None:
+                cfg.conform_memo.put(vol, cfg.volume_shape, x)
+        x = x.to(dev)
         # The conformed [0, 1] volume leaves preprocessing in the policy's
         # storage type, so the forwards below read it at that width.
         if precision == "int8w":

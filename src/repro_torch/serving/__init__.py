@@ -1,8 +1,20 @@
 """Serving tier: the engines (engine.py), the typed serving errors
-(errors.py), the continuous-batching request scheduler (scheduler.py) and
-the deterministic load simulator (simulator.py). The resilience layer,
-the artifact cache and the replicated fleet are not ported yet (ROADMAP.md,
-Queue 1 items 13b and 13c)."""
+(errors.py), the continuous-batching request scheduler (scheduler.py),
+the deterministic load simulator (simulator.py), the resilience layer —
+retry/backoff, timeouts, hedging policy and the executor degradation
+ladder behind circuit breakers (resilience.py) — and the
+content-addressed artifact cache with integrity quarantine, single-flight
+coalescing and a fail-open breaker (cache.py). The replicated fleet is
+not ported yet (ROADMAP.md, Queue 1 item 13c)."""
+
+from repro_torch.serving.cache import (  # noqa: F401
+    ArtifactCache,
+    CacheConfig,
+    CacheStats,
+    ConformMemo,
+    artifact_key,
+    content_hash,
+)
 
 from repro_torch.serving.errors import (  # noqa: F401
     EXECUTION_FAULT_TYPES,
@@ -22,6 +34,19 @@ from repro_torch.serving.errors import (  # noqa: F401
     ServingError,
     TransientExecutorError,
     classify,
+)
+from repro_torch.serving.resilience import (  # noqa: F401
+    CARD_LADDER,
+    FAULT_KINDS,
+    LADDER,
+    BreakerConfig,
+    FaultPlan,
+    FaultRule,
+    HedgePolicy,
+    ResiliencePolicy,
+    RetryPolicy,
+    SignatureBreaker,
+    demote_rung,
 )
 from repro_torch.serving.scheduler import (  # noqa: F401
     DEFAULT_CLASSES,

@@ -16,7 +16,9 @@ queued entry points — ``submit_async`` and ``drain``, and
 scheduler (serving/scheduler.py): a bounded queue with typed
 ``QueueFullError`` backpressure, priority and deadline classes,
 budget-priced admission with shed-to-subvolume demotion, and grouping of
-requests that share a resolved signature.
+requests that share a resolved signature; given a resilience policy, a
+fault plan or an artifact cache at creation, it retries, walks the
+breaker's ladder and answers repeated volumes from the cache.
 """
 
 from __future__ import annotations
@@ -313,11 +315,12 @@ class SegmentationEngine:
 
     def scheduler(self, scheduler_cfg=None, **kwargs):
         """The engine's request scheduler, created on first use (pass
-        ``scheduler_cfg`` or keyword arguments then; see
-        ``RequestScheduler``). ``submit_async`` and ``drain`` go through
-        it. Raises if a configuration is passed after it exists: returning
-        the old one would leave the caller believing their admission
-        limits are active."""
+        ``scheduler_cfg`` or keyword arguments then — ``clock``,
+        ``resilience``, ``fault_plan``, ``cache`` and the rest of
+        ``RequestScheduler``'s, passed through). ``submit_async`` and
+        ``drain`` go through it. Raises if a configuration is passed after
+        it exists: returning the old one would leave the caller believing
+        their admission limits are active."""
         if self._scheduler is None:
             self._scheduler = RequestScheduler(self, scheduler_cfg, **kwargs)
         elif scheduler_cfg is not None or kwargs:

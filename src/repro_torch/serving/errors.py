@@ -18,10 +18,9 @@ to build or launch) classifies as ``permanent_fault``, as an XLA error
 does in the reference. The scheduler stamps the result as the record's
 ``fail_type``.
 
-The retry, timeout and circuit-breaker machinery that acts on these
-types, and the artifact cache whose faults are typed here, are not
-ported yet (ROADMAP.md, Queue 1 item 13b); the types are, so that
-records and classifications match the reference's now.
+The scheduler's retries, service timeouts and circuit breaker
+(serving/resilience.py) act on these types; the artifact cache
+(serving/cache.py) raises and degrades on the cache faults.
 """
 
 from __future__ import annotations
@@ -31,10 +30,6 @@ from __future__ import annotations
 # model's admission failures both cross the serving boundary.
 from repro_torch.core.spatial_shard import ShardGeometryError  # noqa: F401
 from repro_torch.telemetry.budget import BudgetExceeded  # noqa: F401
-
-#: what a caller reads when it asks for a serving module not ported yet.
-NOT_PORTED_13B = "not ported yet (ROADMAP.md, Queue 1 item 13b: resilience and cache)"
-
 
 class ServingError(Exception):
     """Base class of every serving-owned typed error."""

@@ -31,11 +31,18 @@ float``. Production uses the process monotonic clock; the load simulator
 (``serving/simulator.py``) passes a virtual clock and a byte-model
 service time, which is how its reports are bit-reproducible.
 
-Retries, service timeouts, the circuit breaker's degradation ladder,
-seeded fault injection and the artifact cache are not ported yet
-(ROADMAP.md, Queue 1 item 13b): ``RequestScheduler`` raises
-``ValueError`` when given a resilience policy, a fault plan or a cache.
-Without them it decides as the reference's does, bit for bit.
+With a ``ResiliencePolicy`` (serving/resilience.py) retryable faults
+re-enter their lane behind a seeded backoff, per-class service timeouts
+reap stuck attempts on the modeled path, and a per-signature circuit
+breaker walks a faulting signature down the degradation ladder and back;
+a ``FaultPlan`` injects faults (on the executed path only transient and
+permanent raises, before the engine runs). With an ``ArtifactCache``
+(serving/cache.py) admission consults the cache: a verified hit or a
+negative verdict completes at once, and identical concurrent requests
+attach to one in-flight leader. Every completion owns its segmentation:
+hits and followers get copies, and so does the cache entry, since a
+caller may write into its tensor. The scheduler decides as the
+reference's does, bit for bit.
 """
 
 from __future__ import annotations
@@ -47,13 +54,21 @@ from typing import Any, Optional
 
 from repro_torch.core import executors, spatial_shard
 from repro_torch.kernels import quantize
+from repro_torch.serving import cache as cache_mod
 from repro_torch.serving.errors import (  # noqa: F401  (QueueFullError re-exported)
-    NOT_PORTED_13B,
+    EXECUTION_FAULT_TYPES,
     PERMANENT_FAULT,
     QueueFullError,
+    RETRYABLE_FAIL_TYPES,
+    SERVICE_TIMEOUT,
     TRANSIENT_FAULT,
+    CacheCorruptionError,
+    PermanentExecutorError,
+    ResilienceConfigError,
+    TransientExecutorError,
     classify,
 )
+from repro_torch.serving.resilience import SignatureBreaker, demote_rung
 from repro_torch.telemetry.budget import MemoryBudget
 from repro_torch.telemetry.record import StageTimes, TelemetryRecord
 
@@ -111,10 +126,27 @@ class ServeRequest:
     key: Optional[GroupKey] = None
     bytes_priced: int = 0
     demoted: bool = False
-    # the time before which the request is not batchable: a retry
-    # policy's backoff (item 13b); without one every request is ready at
-    # once
+    # resilience state (serving/resilience.py). ``base_key`` is the
+    # signature as admitted, before any breaker demotion — the breaker's
+    # ledger key and the rung half-open probes retry; ``attempt`` counts
+    # completed service attempts (0 == first try); ``not_before_s`` is
+    # the retry-backoff gate (the request stays queued but is not
+    # batchable until then; its original arrival stamp is untouched, so
+    # deadlines and FIFO order stay honest); ``probe`` marks a half-open
+    # breaker probe serving at the base rung; ``faults`` counts the
+    # retryable faults this request has absorbed (recovery accounting).
+    base_key: Optional[GroupKey] = None
+    base_bytes: int = 0
+    attempt: int = 0
     not_before_s: float = 0.0
+    probe: bool = False
+    faults: int = 0
+    # artifact-cache state (serving/cache.py): the artifact key this
+    # request leads for — set when the admission consult missed and this
+    # request registered the single-flight in-flight entry; its terminal
+    # record is stored under this key and its followers complete with
+    # it. None for non-leaders (hits, followers, uncacheable).
+    cache_key: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -155,7 +187,7 @@ class SchedulerConfig:
 class SchedulerStats:
     """Conservation ledger. Terminal states are disjoint:
 
-        admitted == completed + demoted + rejected + evacuated
+        admitted == completed + demoted + rejected + evacuated + coalesced
         (after drain)
 
     ``completed`` counts requests that reached service in their admitted
@@ -165,9 +197,17 @@ class SchedulerStats:
     ``refused`` counts ``QueueFullError`` submissions that were never
     admitted (outside the conservation sum). ``evacuated`` counts
     requests handed back to the caller before service (``evacuate``,
-    ``cancel``). ``transient_faults`` and ``permanent_faults`` count the
-    served requests whose executor raised, by class (item 13b's retries,
-    timeouts and cache, and their counters, are not ported yet).
+    ``cancel``). ``coalesced`` counts requests that completed by
+    attaching to an identical in-flight leader's artifact: they never
+    entered the queue and never reached a device.
+
+    The resilience counters count events, not requests (a retried
+    request is still exactly one terminal state above), except
+    ``faulted_requests`` and ``recovered_requests``, which count
+    terminal requests for the recovery rate. ``cache_hits`` counts
+    admission-time completions from a verified artifact or a negative
+    verdict; those are ordinary ``completed`` requests, stamped
+    ``cache_hit``.
     """
 
     admitted: int = 0
@@ -180,14 +220,22 @@ class SchedulerStats:
     grouped_requests: int = 0
     resolutions: int = 0
     max_queue_depth: int = 0
+    retries: int = 0
     transient_faults: int = 0
     permanent_faults: int = 0
+    timeouts: int = 0
+    faulted_requests: int = 0
+    recovered_requests: int = 0
+    coalesced: int = 0
+    cache_hits: int = 0
 
     def rejected_total(self) -> int:
         return sum(self.rejected.values())
 
     def conserved(self) -> bool:
-        return self.admitted == self.completed + self.demoted + self.rejected_total() + self.evacuated
+        return self.admitted == (
+            self.completed + self.demoted + self.rejected_total() + self.evacuated + self.coalesced
+        )
 
 
 @dataclasses.dataclass
@@ -203,11 +251,23 @@ class Completion:
     """Terminal record of one admitted request."""
 
     id: int
-    outcome: str  # completed | demoted | rejected
+    outcome: str  # completed | demoted | rejected | coalesced
     record: TelemetryRecord
     result: Any  # PipelineResult | None (rejections / modeled runs)
     arrival_s: float
     finish_s: float
+
+
+def _own_copy(result, record):
+    """A copy of a PipelineResult whose segmentation no other completion
+    and no cache entry shares, carrying ``record``: what a cache hit, a
+    coalesced follower and the cache entry itself are given, so a caller
+    that writes into its tensor changes nobody else's. None stays None
+    (the modeled path and negative verdicts carry no result)."""
+    if result is None:
+        return None
+    seg = result.segmentation
+    return dataclasses.replace(result, segmentation=None if seg is None else seg.clone(), record=record)
 
 
 class _MonotonicClock:
@@ -228,8 +288,14 @@ class RequestScheduler:
     synthesizes records from the byte models — the pure discrete-event
     mode of the load simulator.
 
-    ``resilience``, ``fault_plan`` and ``cache`` are the reference's
-    hooks for item 13b; anything but None raises ``ValueError``.
+    ``resilience`` (a ``ResiliencePolicy``) turns on retries, service
+    timeouts and the breaker; ``fault_plan`` (a ``FaultPlan``) is the
+    seeded injector; ``replica_id`` keys injection decisions and backoff
+    jitter so that replicas de-correlate; ``cache`` (an ``ArtifactCache``)
+    is consulted at admission. The windows of a fault plan, the breaker's
+    cooldown and retry backoff are on ``clock``: under the production
+    clock that is ``time.monotonic()``, so windows are built from
+    ``clock.now()``.
     """
 
     def __init__(
@@ -242,16 +308,32 @@ class RequestScheduler:
         execute: bool = True,
         resilience=None,
         fault_plan=None,
+        replica_id: int = 0,
         cache=None,
     ):
-        for name, given in (("resilience", resilience), ("fault_plan", fault_plan), ("cache", cache)):
-            if given is not None:
-                raise ValueError(f"RequestScheduler({name}=...): {NOT_PORTED_13B}")
         self.engine = engine
         self.cfg = cfg or SchedulerConfig()
         self.clock = clock or _MonotonicClock()
         self.service_model = service_model
         self.execute = execute
+        # the artifact cache (serving/cache.py), consulted at admission;
+        # ``_followers`` holds the requests attached to each in-flight
+        # leader's artifact key
+        self.cache = cache
+        self._followers: dict[str, list[ServeRequest]] = {}
+        self._model_fp: Optional[str] = None
+        self.resilience = resilience
+        self.fault_plan = fault_plan
+        self.replica_id = replica_id
+        if resilience is not None:
+            resilience.validate_against(self.cfg.classes, fault_plan)
+        elif fault_plan is not None and fault_plan.has_stuck():
+            raise ResilienceConfigError(
+                "FaultPlan injects stuck-forever faults but no ResiliencePolicy (service timeouts) is configured"
+            )
+        self.breaker = None
+        if resilience is not None and resilience.breaker is not None:
+            self.breaker = SignatureBreaker(resilience.breaker)
         self.queue: list[ServeRequest] = []
         self.completions: list[Completion] = []
         self.stats = SchedulerStats()
@@ -279,7 +361,9 @@ class RequestScheduler:
         """Enqueue one request; returns its id. Raises ``QueueFullError``
         at the depth limit (the refusal is counted and a typed telemetry
         record is logged). ``force=True`` bypasses the depth limit (a
-        router's failover re-dispatch)."""
+        router's failover re-dispatch). A request the cache answers (a
+        hit, a negative verdict, or a follower of an in-flight leader) is
+        terminal at admission and never queued."""
         now = self.clock.now() if arrival_s is None else float(arrival_s)
         cls = self.cfg.classes[priority]
         rid = self._seq
@@ -304,11 +388,13 @@ class RequestScheduler:
             precision=precision,
         )
         req.key, req.bytes_priced = self._resolve(req)
+        req.base_key, req.base_bytes = req.key, req.bytes_priced
         self.stats.admitted += 1
+        if self._consult_cache(req, now, force=force):
+            return rid
         self.queue.append(req)
         self.stats.max_queue_depth = max(self.stats.max_queue_depth, len(self.queue))
         return rid
-
     def _resolve(self, req: ServeRequest) -> tuple[Optional[GroupKey], int]:
         """The request's admission signature — mode (the engine's
         budget-driven failsafe selection), executor name, device count,
@@ -382,11 +468,173 @@ class RequestScheduler:
             return 0
         return quantize.model_params_bytes(self.engine.cfg.model, key.precision)
 
+    # ------------------------------------------------------- artifact cache
+
+    def _consult_cache(self, req: ServeRequest, now: float, force: bool) -> bool:
+        """Admission-time cache consult. Returns True when the request is
+        terminal already — served from a verified artifact (``completed``
+        and ``cache_hits``), from a negative verdict, or attached as a
+        single-flight follower (completes with its leader) — and must not
+        enter the queue. Returns False on miss, bypass or an unavailable
+        tier: the request serves via compute, fail-open, possibly as the
+        new in-flight leader. ``force`` marks failover and hedge copies:
+        they may take a clean hit but never lead or follow."""
+        if self.cache is None or req.key is None:
+            return False
+        content = cache_mod.content_hash(req.vol)
+        if content is None:
+            return False  # no content identity: uncacheable
+        if self._model_fp is None:
+            self._model_fp = cache_mod.model_fingerprint(self.engine.cfg.model)
+        ckey = cache_mod.artifact_key(content, self._model_fp, req.key.precision, req.key.mode)
+        look = self.cache.lookup(ckey, now=now, replica=self.replica_id, request_id=req.id, group_key=req.key)
+        if look.status in ("unavailable", "bypass"):
+            return False  # fail open: compute path, no single-flight
+        if look.status == "hit":
+            try:
+                payload = self.cache.serve_payload(look.entry)
+            except CacheCorruptionError:
+                # the serve-time guard caught a breach: recompute
+                look = cache_mod.Lookup(status="miss", slow_factor=look.slow_factor)
+            else:
+                self._complete_from_cache(req, payload, look, now, result=look.entry.result)
+                return True
+        if look.status == "negative":
+            self._complete_from_cache(req, None, look, now, fail_type=look.entry.fail_type)
+            return True
+        if look.status == "inflight":
+            if not force and look.owner == self.replica_id:
+                req.cache_key = ckey
+                self._followers.setdefault(ckey, []).append(req)
+                return True
+            return False  # a peer's leader: compute independently
+        if look.status == "miss" and not force:
+            self.cache.begin(
+                ckey, replica=self.replica_id, now=now, est_bytes=cache_mod.artifact_bytes_modeled(req.key.shape)
+            )
+            req.cache_key = ckey
+        if look.slow_factor > 1.0:
+            # a slow consult delays this request's batch eligibility by the
+            # inflated verify cost — latency degradation, fail-open
+            req.not_before_s = max(req.not_before_s, now + self.cache.cfg.verify_s * look.slow_factor)
+        return False
+
+    def _complete_from_cache(
+        self,
+        req: ServeRequest,
+        payload: Optional[dict],
+        look,
+        now: float,
+        *,
+        fail_type: Optional[str] = None,
+        result=None,
+    ) -> None:
+        """Terminal completion at admission: the verified artifact's
+        metadata (or the negative verdict) becomes this request's record,
+        stamped ``cache_hit`` — no queue, no batch, no device. ``wait +
+        service == finish - arrival`` holds with wait 0 and service the
+        (possibly slowed) verify cost. The result is a copy of the
+        entry's, owned by this completion."""
+        service = self.cache.cfg.verify_s * look.slow_factor
+        finish = now + service
+        negative = payload is None
+        rec = TelemetryRecord(
+            model=self.engine.cfg.name,
+            mode=(payload or {}).get("mode") or req.key.mode,
+            status="fail" if negative else "ok",
+            times=StageTimes(),
+            executor=(payload or {}).get("executor") or req.key.executor,
+            precision=(payload or {}).get("precision") or req.key.precision,
+            params_bytes=(payload or {}).get("params_bytes"),
+            fail_type=fail_type,
+            request_id=req.id,
+            arrival_s=req.arrival_s,
+            queue_wait_s=0.0,
+            service_s=service,
+            batch_size=1,
+            priority_class=req.priority_class.name,
+            cache_hit=True,
+            extra=({"negative_cache": True} if negative else {"artifact_checksum": look.entry.checksum[:16]}),
+        )
+        self.engine.log.append(rec)
+        self.stats.completed += 1
+        self.stats.cache_hits += 1
+        self.completions.append(
+            Completion(
+                id=req.id,
+                outcome="completed",
+                record=rec,
+                result=_own_copy(result, rec),
+                arrival_s=req.arrival_s,
+                finish_s=finish,
+            )
+        )
+
+    def _complete_cache_leader(self, req: ServeRequest, rec, result, finish: float) -> None:
+        """Fold a single-flight leader's terminal record into the cache and
+        complete every attached follower with its artifact — outcome
+        ``coalesced``, stamped ``cache_hit``, one artifact checksum. N
+        identical concurrent requests == 1 execution + N-1 coalesced
+        completions. The cache entry and each follower get copies of the
+        leader's result of their own.
+
+        Two guards before anything is stored or coalesced:
+
+        * a record whose (mode, precision) differ from the admission form
+          the artifact key was derived from must not be stored under
+          that key (``_release_stale_lead`` catches the demotion and
+          ladder paths at mutation time; this is the backstop);
+        * a retryable-class terminal failure (an exhausted transient
+          budget, a service timeout) is one leader's bad luck, not a
+          property of the content: followers re-enter the queue with
+          their own retry budgets. (A permanent fault does coalesce: the
+          verdict is content-determined and is negative-cached.)"""
+        stale = req.base_key is not None and (rec.mode, rec.precision) != (req.base_key.mode, req.base_key.precision)
+        retryable_failure = rec.status == "fail" and rec.fail_type in RETRYABLE_FAIL_TYPES
+        if stale or retryable_failure:
+            self._release_lead(req)
+            return
+        ckey = req.cache_key
+        checksum = self.cache.complete(
+            ckey,
+            now=finish,
+            record=rec,
+            result=_own_copy(result, rec),
+            shape=req.key.shape if req.key is not None else (0, 0, 0),
+            replica=self.replica_id,
+            request_id=req.id,
+        )
+        if checksum is not None:
+            rec.extra = {**rec.extra, "artifact_checksum": checksum[:16]}
+        for f in self._followers.pop(ckey, []):
+            frec = dataclasses.replace(
+                rec,
+                request_id=f.id,
+                arrival_s=f.arrival_s,
+                queue_wait_s=max(0.0, finish - f.arrival_s),
+                service_s=0.0,
+                cache_hit=True,
+                attempt=0,
+            )
+            self.engine.log.append(frec)
+            self.stats.coalesced += 1
+            self.completions.append(
+                Completion(
+                    id=f.id,
+                    outcome="coalesced",
+                    record=frec,
+                    result=_own_copy(result, frec),
+                    arrival_s=f.arrival_s,
+                    finish_s=finish,
+                )
+            )
+
     # ------------------------------------------------------------ dispatch
 
     def _seed_index(self, ready: list[int]) -> int:
         """Oldest ready request of the highest-priority class (FIFO within
-        a class; ids break arrival ties)."""
+        a class; ids break arrival ties). ``ready`` indexes the queue
+        entries not gated by a retry backoff."""
         return min(
             ready,
             key=lambda i: (
@@ -407,6 +655,25 @@ class RequestScheduler:
         self.completions.append(
             Completion(id=req.id, outcome="rejected", record=rec, result=None, arrival_s=req.arrival_s, finish_s=now)
         )
+        # a shed single-flight leader must not strand its followers: they
+        # re-enter the queue to serve independently
+        self._release_lead(req)
+
+    def _release_lead(self, req: ServeRequest) -> None:
+        """Release a leader's single-flight pin without completing it: the
+        pending placeholder is abandoned (bytes credited back) and every
+        attached follower re-enters the queue as an independent request.
+        A no-op on non-leaders."""
+        if req.cache_key is None or self.cache is None:
+            return
+        ckey, req.cache_key = req.cache_key, None
+        if self.cache.inflight_owner(ckey) == self.replica_id:
+            self.cache.abandon(ckey)
+        for f in self._followers.pop(ckey, []):
+            f.cache_key = None
+            self.queue.append(f)
+        if self.queue:
+            self.stats.max_queue_depth = max(self.stats.max_queue_depth, len(self.queue))
 
     def _log_shed(self, rid, cls, arrival, reason, now=None):
         """Typed telemetry for a request shed before service."""
@@ -427,17 +694,21 @@ class RequestScheduler:
 
     def next_batch(self, now: Optional[float] = None) -> Optional[Batch]:
         """Form the next dispatch group at time ``now``: shed expired
-        deadlines, pick the seed (priority order, FIFO within class),
-        apply admission (demote or reject an over-budget seed), then grow
-        the group with same-class, same-signature requests while the
-        summed working sets fit the admission budget."""
+        deadlines, pick the seed (priority order, FIFO within class), pin
+        it to its breaker rung, apply admission (demote or reject an
+        over-budget seed), then grow the group with same-class,
+        same-signature requests while the summed working sets fit the
+        admission budget."""
         now = self.clock.now() if now is None else now
         while True:
             self._shed_expired(now)
             ready = [i for i, r in enumerate(self.queue) if r.not_before_s <= now]
             if not ready:
+                # an empty queue, or every queued request in retry backoff:
+                # next_ready_s() says when to wake
                 return None
             seed = self.queue.pop(self._seed_index(ready))
+            self._apply_breaker(seed, now)
             cap = self.cfg.admission_hbm_bytes
             if cap is not None and seed.key is not None and seed.bytes_priced > cap:
                 form = self._demoted_form(seed)
@@ -456,11 +727,15 @@ class RequestScheduler:
                     if len(members) >= self.cfg.max_batch_requests:
                         break
                     if req.not_before_s > now:
-                        continue
+                        continue  # still gated by a retry backoff
                     # a candidate is judged at the form it would serve in:
-                    # over the cap, its demoted form, so that requests an
-                    # overload demotes still batch together
+                    # its breaker rung first (peeked, so no probe slot is
+                    # claimed for a request not taken), then, over the cap,
+                    # its demoted form, so that requests an overload
+                    # demotes still batch together
                     key, bts, via_demotion = req.key, req.bytes_priced, False
+                    if self.breaker is not None and req.base_key is not None:
+                        key, bts = self._breaker_form(req, self.breaker.peek_rung(req.base_key, now))
                     if cap is not None and key is not None and bts > cap:
                         form = self._demoted_form(req)
                         if form is None or form[1] > cap:
@@ -473,6 +748,7 @@ class RequestScheduler:
                         and (cap is None or total + (bts - w_shared) <= cap)
                     ):
                         self.queue.remove(req)
+                        self._apply_breaker(req, now)
                         if via_demotion:
                             self._apply_demotion(req, key, bts)
                         members.append(req)
@@ -505,6 +781,50 @@ class RequestScheduler:
         req.key = key
         req.bytes_priced = bts
         req.demoted = True
+        self._release_stale_lead(req)
+
+    def _release_stale_lead(self, req: ServeRequest) -> None:
+        """A leader's artifact key was derived at admission from its
+        resolved (mode, precision), the axes ``cache.artifact_key`` bakes
+        in because they change the artifact. Admission demotion and the
+        breaker ladder change ``req.key`` after that, so a demoted or
+        ladder-degraded leader releases its lead (pin abandoned,
+        followers re-queued) and the wrong-key store never lands. A no-op
+        while the effective (mode, precision) match ``base_key``'s."""
+        if req.cache_key is None or req.key is None or req.base_key is None:
+            return
+        if (req.key.mode, req.key.precision) != (req.base_key.mode, req.base_key.precision):
+            self._release_lead(req)
+
+    def _breaker_form(self, req: ServeRequest, rung: int) -> tuple[GroupKey, int]:
+        """The (key, priced bytes) ``req`` serves at ``rung`` steps down
+        the degradation ladder from its base signature, re-resolved
+        through the executor registry and re-priced for admission. Rung 0
+        is the base form (a restored breaker or a half-open probe); the
+        walk caps at the ladder's bottom rung."""
+        if rung <= 0:
+            return req.base_key, req.base_bytes
+        key = req.base_key
+        for _ in range(rung):
+            nxt = demote_rung(key, self.engine)
+            if nxt is None:
+                break  # already at the sub-volume failsafe
+            key = nxt
+        return key, self._price(key.mode, key.shape, key.precision)
+
+    def _apply_breaker(self, req: ServeRequest, now: float) -> None:
+        """Pin the request to its breaker-effective form on admission to a
+        batch: claims the half-open probe slot when this request is the
+        probe, walks the ladder otherwise. ``demoted`` tracks whether the
+        effective mode is the sub-volume failsafe, so ladder restores
+        un-demote and ladder bottoms count as demotions."""
+        if self.breaker is None or req.base_key is None:
+            return
+        rung, probe = self.breaker.effective_rung(req.base_key, now)
+        req.key, req.bytes_priced = self._breaker_form(req, rung)
+        req.probe = probe
+        req.demoted = req.key.mode == "subvolume" and req.base_key.mode != "subvolume"
+        self._release_stale_lead(req)
 
     # ------------------------------------------------------------ service
 
@@ -512,9 +832,10 @@ class RequestScheduler:
         """Serve one dispatch group. Members run back-to-back. Each
         member's telemetry is stamped with queue wait, service time and
         the group size; a member that *raises* (garbage volume, a kernel
-        that fails) gets a typed failure record classified along the
-        transient/permanent axis (serving/errors.py) while the rest of
-        the group completes. Returns the batch finish time."""
+        that fails, an injected fault) gets a typed failure record
+        classified along the transient/permanent axis (serving/errors.py)
+        while the rest of the group completes. Returns the batch finish
+        time."""
         t, unserved = self.run_batch_until(batch, None, now=now)
         assert not unserved  # until=None serves every member
         return t
@@ -548,12 +869,21 @@ class RequestScheduler:
             return self._run_batched_launch(batch, until, t)
         for idx, req in enumerate(batch.requests):
             if until is not None:
-                # preview the member's modeled duration without serving it
-                if t + self.service_model.service_s(self._modeled_record(req)) > until:
+                # preview the member's modeled duration without serving it:
+                # _attempt_record and _attempt_service are pure, so the
+                # preview matches the serve, injected faults included
+                preview, p_decision = self._attempt_record(req, t)
+                p_service, _ = self._attempt_service(preview, p_decision, req)
+                if t + p_service > until:
                     return t, list(batch.requests[idx:])
-            result, rec = self._serve_one(req)
+            result, rec, decision = self._serve_one(req, t)
             if self.service_model is not None:
-                service = self.service_model.service_s(rec)
+                service, timed_out = self._attempt_service(rec, decision, req)
+                if timed_out:
+                    # cancelled at the bound: the member held the replica
+                    # for exactly the timeout, and the fault is retryable
+                    rec.status = "fail"
+                    rec.fail_type = SERVICE_TIMEOUT
             else:
                 service = max(0.0, self.clock.now() - t)
             finish = t + service
@@ -561,12 +891,14 @@ class RequestScheduler:
             rec.arrival_s = req.arrival_s
             # wait = until this member's forward starts (batch overhead and
             # predecessors' service included), so queue_wait_s + service_s
-            # == finish - arrival exactly
+            # == finish - arrival exactly; retried attempts keep the
+            # original arrival
             rec.queue_wait_s = max(0.0, t - req.arrival_s)
             rec.service_s = service
             rec.batch_size = len(batch.requests)
             rec.priority_class = req.priority_class.name
             rec.demoted = req.demoted
+            rec.attempt = req.attempt
             self._finish_attempt(req, rec, result, finish)
             t = finish
         return t, []
@@ -576,16 +908,37 @@ class RequestScheduler:
         ``batched_dispatch`` only): the launch's service interval comes
         from a single batch-N modeled record, and every member shares it,
         so ``queue_wait_s + service_s == finish - arrival`` holds per
-        member. Horizon truncation is all-or-nothing."""
+        member. Fault injection stays per member, but a straggler or stuck
+        member slows the whole launch, and the class service timeout
+        clips it, failing the still-ok members with ``service_timeout``.
+        Horizon truncation is all-or-nothing."""
         reqs = batch.requests
         n = len(reqs)
-        records = [self._modeled_record(req) for req in reqs]
+        attempts = [self._attempt_record(req, t) for req in reqs]
         service = self.service_model.service_s(self._modeled_record(reqs[0], batch=n))
+        factor, stuck = 1.0, False
+        for rec, decision in attempts:
+            if decision is not None and rec.status == "ok":
+                if decision.kind == "straggler":
+                    factor = max(factor, decision.slow_factor)
+                elif decision.kind == "stuck":
+                    stuck = True
+        service = math.inf if stuck else service * factor
+        timeout = None if self.resilience is None else self.resilience.timeout_for(reqs[0].priority_class.name)
+        timed_out = False
+        if timeout is not None and service > timeout:
+            service, timed_out = timeout, True
+        if math.isinf(service):
+            raise ResilienceConfigError(
+                f"stuck fault on class {reqs[0].priority_class.name!r} with no service timeout configured"
+            )
         finish = t + service
         if until is not None and finish > until:
             return t, list(reqs)
-        for req, rec in zip(reqs, records):
+        for req, (rec, decision) in zip(reqs, attempts):
             self.engine.log.append(rec)
+            if timed_out and rec.status == "ok":
+                rec.status, rec.fail_type = "fail", SERVICE_TIMEOUT
             rec.request_id = req.id
             rec.arrival_s = req.arrival_s
             rec.queue_wait_s = max(0.0, t - req.arrival_s)
@@ -593,32 +946,129 @@ class RequestScheduler:
             rec.batch_size = n
             rec.priority_class = req.priority_class.name
             rec.demoted = req.demoted
+            rec.attempt = req.attempt
             self._finish_attempt(req, rec, None, finish)
         return finish, []
 
     def _finish_attempt(self, req, rec, result, finish: float) -> None:
-        """Fold one finished service attempt into the fault counters and
-        the conservation ledger, and append its completion."""
-        if rec.status == "fail" and rec.fail_type == TRANSIENT_FAULT:
-            self.stats.transient_faults += 1
-        elif rec.status == "fail" and rec.fail_type == PERMANENT_FAULT:
-            self.stats.permanent_faults += 1
+        """Fold one finished service attempt into the breaker, retry and
+        conservation state. A retryable fault with budget left is not
+        terminal: the request re-enters its lane (original arrival stamp,
+        backoff-gated) and no Completion is appended. Everything else is
+        terminal; a terminal single-flight leader stores its artifact and
+        completes its followers."""
+        is_fault = rec.status == "fail" and rec.fail_type in EXECUTION_FAULT_TYPES
+        if is_fault:
+            if rec.fail_type == TRANSIENT_FAULT:
+                self.stats.transient_faults += 1
+            elif rec.fail_type == PERMANENT_FAULT:
+                self.stats.permanent_faults += 1
+            else:
+                self.stats.timeouts += 1
+        if self.breaker is not None and req.base_key is not None:
+            self.breaker.on_result(req.base_key, fault=is_fault, probe=req.probe, now=finish)
+        retryable = rec.status == "fail" and rec.fail_type in RETRYABLE_FAIL_TYPES
+        if retryable:
+            req.faults += 1
+        if retryable and self.resilience is not None and req.attempt + 1 < self.resilience.retry.max_attempts:
+            req.attempt += 1
+            req.probe = False
+            req.not_before_s = finish + self.resilience.retry.backoff_s(req.attempt, self.replica_id, req.id)
+            self.stats.retries += 1
+            self.queue.append(req)
+            self.stats.max_queue_depth = max(self.stats.max_queue_depth, len(self.queue))
+            return
         outcome = "demoted" if req.demoted else "completed"
         if req.demoted:
             self.stats.demoted += 1
         else:
             self.stats.completed += 1
+        if req.faults:
+            self.stats.faulted_requests += 1
+            if rec.status == "ok":
+                self.stats.recovered_requests += 1
         self.completions.append(
             Completion(id=req.id, outcome=outcome, record=rec, result=result, arrival_s=req.arrival_s, finish_s=finish)
         )
+        if req.cache_key is not None and self.cache is not None:
+            self._complete_cache_leader(req, rec, result, finish)
+
+    def _fault_decision(self, req: ServeRequest, t: float):
+        """The seeded injector's verdict for this attempt — pure in (plan
+        seed, time, replica, effective signature, request id, attempt).
+        Keyed on the effective key: a breaker-demoted signature escapes
+        rules that match only its faulty rung, which is what lets the
+        ladder route around a poisoned executor."""
+        if self.fault_plan is None or req.key is None:
+            return None
+        return self.fault_plan.decide(
+            t=t,
+            replica=self.replica_id,
+            key=req.key,
+            request_id=req.id,
+            attempt=req.attempt,
+            priority=req.priority_class.name,
+        )
+
+    def _attempt_record(self, req: ServeRequest, t: float):
+        """(modeled record, fault decision) for one attempt at ``t`` — no
+        logging, no state: the truncation preview and the serve call this
+        with identical arguments and must agree."""
+        rec = self._modeled_record(req)
+        decision = self._fault_decision(req, t)
+        if decision is not None and rec.status == "ok":
+            if decision.kind == "transient":
+                rec.status, rec.fail_type = "fail", TRANSIENT_FAULT
+            elif decision.kind == "permanent":
+                rec.status, rec.fail_type = "fail", PERMANENT_FAULT
+            if rec.status == "fail":
+                rec.extra = {"injected": decision.kind, "rule": decision.rule_index}
+        return rec, decision
+
+    def _attempt_service(self, rec, decision, req: ServeRequest):
+        """(service_s, timed_out) for one modeled attempt: the service
+        model's duration, inflated by an injected straggler factor,
+        infinite for a stuck fault, then clipped at the class's service
+        timeout. The clip is the cancellation. A stuck fault with no
+        timeout is unservable and raises typed."""
+        service = self.service_model.service_s(rec)
+        if decision is not None and rec.status == "ok":
+            if decision.kind == "straggler":
+                service *= decision.slow_factor
+            elif decision.kind == "stuck":
+                service = math.inf
+        timeout = None if self.resilience is None else self.resilience.timeout_for(req.priority_class.name)
+        if timeout is not None and service > timeout:
+            return timeout, True
+        if math.isinf(service):
+            raise ResilienceConfigError(
+                f"stuck fault on class {req.priority_class.name!r} with no service timeout configured"
+            )
+        return service, False
 
     def evacuate(self, now: Optional[float] = None) -> list:
         """Hand every queued request back to the caller (a router's
         failover or drain re-dispatch): the queue empties, each popped
-        request counts as ``evacuated``. Returns the requests in
-        (arrival, id) order."""
+        request counts as ``evacuated``. Single-flight state goes with the
+        queue: every follower is handed back too, and every in-flight
+        cache pin this replica owns is abandoned, so no pinned
+        placeholder outlives it. Returns the requests in (arrival, id)
+        order."""
         out = list(self.queue)
         self.queue.clear()
+        if self.cache is not None:
+            for lst in self._followers.values():
+                for f in lst:
+                    f.cache_key = None
+                    out.append(f)
+            self._followers.clear()
+            for req in out:
+                if req.cache_key is not None:
+                    self.cache.abandon(req.cache_key)
+                    req.cache_key = None
+            for ckey, owner in list(self.cache.inflight.items()):
+                if owner == self.replica_id:
+                    self.cache.abandon(ckey)
         out.sort(key=lambda r: (r.arrival_s, r.id))
         self.stats.evacuated += len(out)
         return out
@@ -627,12 +1077,24 @@ class RequestScheduler:
         """Remove one queued request before service (a hedge loser whose
         twin completed elsewhere), counted ``evacuated``. Returns the
         request, or None when it is not queued — and then nothing
-        changes."""
+        changes. A cancelled single-flight leader releases its pin and
+        re-queues its followers; a cancelled follower leaves its leader's
+        list without disturbing the leader."""
         for req in self.queue:
             if req.id == rid:
                 self.queue.remove(req)
                 self.stats.evacuated += 1
+                self._release_lead(req)
                 return req
+        for ckey in list(self._followers):
+            for f in self._followers[ckey]:
+                if f.id == rid:
+                    self._followers[ckey].remove(f)
+                    if not self._followers[ckey]:
+                        del self._followers[ckey]
+                    f.cache_key = None
+                    self.stats.evacuated += 1
+                    return f
         return None
 
     def next_ready_s(self, now: float) -> Optional[float]:
@@ -671,18 +1133,24 @@ class RequestScheduler:
         )
         return self._resolve(probe)
 
-    def _serve_one(self, req: ServeRequest):
-        """(PipelineResult | None, TelemetryRecord) for one service
-        attempt: real execution with typed-failure capture, or the modeled
-        record of the discrete-event mode. A raised exception is
-        classified along the transient/permanent axis, its text kept in
-        ``record.extra["error"]``."""
+    def _serve_one(self, req: ServeRequest, t: float):
+        """(PipelineResult | None, TelemetryRecord, FaultDecision | None)
+        for one service attempt: real execution with typed-failure
+        capture, or the modeled record of the discrete-event mode. On the
+        executed path an injected transient or permanent fault raises
+        before the engine runs, so it launches nothing; a raised
+        exception is classified along the transient/permanent axis, its
+        text kept in ``record.extra["error"]``."""
         key = req.key
         if not self.execute:
-            rec = self._modeled_record(req)
+            rec, decision = self._attempt_record(req, t)
             self.engine.log.append(rec)
-            return None, rec
+            return None, rec, decision
+        decision = self._fault_decision(req, t)
         try:
+            if decision is not None and decision.kind in ("transient", "permanent"):
+                err = TransientExecutorError if decision.kind == "transient" else PermanentExecutorError
+                raise err(f"injected {decision.kind} fault (rule {decision.rule_index})")
             result = self.engine._run_request(
                 req.vol,
                 mode=key.mode if key else req.mode,
@@ -694,7 +1162,7 @@ class RequestScheduler:
                 # to its own shape
                 volume_shape=key.shape if key and self.cfg.native_shapes else None,
             )
-            return result, result.record
+            return result, result.record, decision
         except Exception as e:  # fault isolation: one bad request != batch
             rec = TelemetryRecord(
                 model=self.engine.cfg.name,
@@ -707,7 +1175,7 @@ class RequestScheduler:
                 extra={"error": f"{type(e).__name__}: {e}"},
             )
             self.engine.log.append(rec)
-            return None, rec
+            return None, rec, decision
 
     def _modeled_record(self, req: ServeRequest, batch: int = 1) -> TelemetryRecord:
         """Synthesized telemetry for ``execute=False`` runs: status and

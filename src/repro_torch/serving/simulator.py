@@ -25,14 +25,17 @@ throughput and shed-rate number is bit-reproducible on any host:
 key-sorted) is what the golden traces serialize: two runs with one seed
 are byte-identical. ``tools/write_serving_goldens.py`` writes the port's.
 
-The artifact cache, the resilience policy and seeded fault injection
-(``SimConfig.cache``, ``resilience``, ``fault_plan``) and Zipf content
-skew (``content_skew``) need modules not ported yet (ROADMAP.md, Queue 1
-item 13b): ``simulate`` raises ``ValueError`` when one is set.
+``SimConfig.resilience`` and ``fault_plan`` put the resilience layer
+(serving/resilience.py) behind the scheduler, ``cache`` the artifact
+cache (serving/cache.py), and ``content_skew`` gives the modeled volumes
+Zipf-distributed content identities (``zipf_content_id``). The summary
+gains its ``resilience`` and ``cache`` blocks only when they are
+configured, so the scenarios without them keep their goldens.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import math
@@ -40,7 +43,8 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.serving.errors import NOT_PORTED_13B
+from repro_torch.serving.cache import ArtifactCache, CacheConfig
+from repro_torch.serving.resilience import unit_hash
 from repro_torch.serving.scheduler import (
     Completion,
     PriorityClass,
@@ -158,6 +162,36 @@ ARRIVAL_PROCESSES = {
 }
 
 
+# -------------------------------------------------------- content skew ---
+
+#: memoized Zipf CDFs keyed on (s, n) — the CDF is a pure function of
+#: the distribution parameters, so sharing it across runs cannot couple
+#: their draws (each draw's coin is an independent unit_hash).
+_ZIPF_CDF_CACHE: dict = {}
+
+
+def zipf_content_id(seed: int, index: int, s: float, n: int) -> int:
+    """The ``index``-th arrival's content identity under a Zipf(s)
+    popularity law over ``n`` distinct volumes — id 0 is the hottest.
+
+    Deterministic: the uniform coin is ``unit_hash("zipf", seed, index)``
+    (the counter-hash of serving/resilience.py), not a shared RNG stream,
+    so other randomness in a scenario cannot perturb which content
+    arrives when. Inverse CDF over the memoized normalized weights."""
+    key = (float(s), int(n))
+    cdf = _ZIPF_CDF_CACHE.get(key)
+    if cdf is None:
+        weights = [1.0 / (k ** float(s)) for k in range(1, int(n) + 1)]
+        total = sum(weights)
+        acc, cdf = 0.0, []
+        for w in weights:
+            acc += w / total
+            cdf.append(acc)
+        _ZIPF_CDF_CACHE[key] = cdf
+    u = unit_hash("zipf", seed, index)
+    return min(bisect.bisect_left(cdf, u), int(n) - 1)
+
+
 # ------------------------------------------------------------ scenarios ---
 
 
@@ -180,9 +214,15 @@ class ScenarioSpec:
 @dataclasses.dataclass
 class SimConfig:
     """One simulator run: seeded arrivals over a scenario mix, through a
-    scheduler configured for the experiment. ``resilience``,
-    ``fault_plan``, ``cache`` and ``content_skew`` are the reference's
-    fields for item 13b; ``simulate`` refuses them until it lands."""
+    scheduler configured for the experiment.
+
+    ``resilience`` (a ``ResiliencePolicy``) and ``fault_plan`` (a
+    ``FaultPlan``) configure the resilience layer; ``cache`` (a
+    ``CacheConfig``, or an ``ArtifactCache`` to share) the artifact
+    cache; ``content_skew`` is the Zipf exponent of request content over
+    ``content_universe`` distinct volumes (None: no content identity).
+    Only modeled (stub) volumes get identities. All None keeps a
+    scenario's summary, and its golden, as without them."""
 
     name: str = "steady"
     seed: int = 0
@@ -197,6 +237,11 @@ class SimConfig:
     fault_plan: Optional[object] = None
     cache: Optional[object] = None
     content_skew: Optional[float] = None
+    content_universe: int = 64
+
+
+#: the outcomes that count as served in a summary
+SERVED = ("completed", "demoted", "coalesced")
 
 
 @dataclasses.dataclass
@@ -219,7 +264,7 @@ class SimReport:
         classes = {}
         for name in sorted(by_class):
             cs = by_class[name]
-            served = [c for c in cs if c.outcome in ("completed", "demoted")]
+            served = [c for c in cs if c.outcome in SERVED]
             e2e = [c.finish_s - c.arrival_s for c in served]
             wait = [c.record.queue_wait_s or 0.0 for c in served]
             classes[name] = {
@@ -231,8 +276,8 @@ class SimReport:
                 "latency_ms": _pctls_ms(e2e),
                 "queue_wait_ms": _pctls_ms(wait),
             }
-        served_all = [c for c in self.completions if c.outcome in ("completed", "demoted")]
-        return {
+        served_all = [c for c in self.completions if c.outcome in SERVED]
+        out = {
             "scenario": self.cfg.name,
             "seed": self.cfg.seed,
             "horizon_s": _round(self.cfg.horizon_s),
@@ -253,6 +298,13 @@ class SimReport:
             "latency_ms": _pctls_ms([c.finish_s - c.arrival_s for c in served_all]),
             "classes": classes,
         }
+        # each block only when its layer is configured, so the scenarios
+        # without it keep their summaries byte for byte
+        if self.cfg.resilience is not None or self.cfg.fault_plan is not None:
+            out["resilience"] = resilience_block(self.scheduler, served_all)
+        if self.cfg.cache is not None:
+            out["cache"] = cache_block(self.scheduler, served_all)
+        return out
 
     def to_json(self) -> str:
         return json.dumps(self.summary(), indent=1, sort_keys=True)
@@ -272,6 +324,53 @@ def _pctls_ms(values) -> dict:
     }
 
 
+def resilience_block(sched, served) -> dict:
+    """The deterministic resilience rollup of one scheduler: retry,
+    fault and recovery counters, the breaker's state history, and the
+    requests each rung (mode/executor) served — the degradation ladder
+    made visible."""
+    st = sched.stats
+    rungs: dict[str, int] = {}
+    for c in served:
+        label = f"{c.record.mode}/{c.record.executor or '-'}"
+        rungs[label] = rungs.get(label, 0) + 1
+    br = sched.breaker
+    return {
+        "retries": st.retries,
+        "faults": {
+            "transient": st.transient_faults,
+            "permanent": st.permanent_faults,
+            "timeout": st.timeouts,
+        },
+        "faulted_requests": st.faulted_requests,
+        "recovered_requests": st.recovered_requests,
+        "recovery_rate": _round(st.recovered_requests / max(st.faulted_requests, 1)),
+        "breaker": None
+        if br is None
+        else {
+            "trips": br.trips,
+            "restores": br.restores,
+            "probes": br.probes,
+            "open_signatures": br.open_signature_labels(),
+            "transitions": br.transitions,
+        },
+        "rungs": dict(sorted(rungs.items())),
+    }
+
+
+def cache_block(sched, served) -> dict:
+    """The deterministic artifact-cache rollup of one scheduler: the
+    cache's own counters plus the scheduler's terminal cache accounting
+    (admission hits, coalesced completions, served requests that never
+    reached a device)."""
+    st = sched.stats
+    out = dict(sched.cache.summary()) if sched.cache is not None else {}
+    out["admission_hits"] = st.cache_hits
+    out["coalesced"] = st.coalesced
+    out["served_from_cache"] = sum(1 for c in served if c.record.cache_hit)
+    return out
+
+
 def _sample_mix(mix, rng: np.random.Generator) -> ScenarioSpec:
     weights = np.array([s.weight for s in mix], dtype=np.float64)
     idx = int(rng.choice(len(mix), p=weights / weights.sum()))
@@ -280,12 +379,16 @@ def _sample_mix(mix, rng: np.random.Generator) -> ScenarioSpec:
 
 class _ShapeStub:
     """What an ``execute=False`` request carries instead of voxels: the
-    modeled path reads only ``.shape``."""
+    modeled path reads only ``.shape``. ``content_id`` is the stub's
+    content identity for the artifact cache: two stubs with equal (shape,
+    content_id) stand for byte-equal volumes; None means no identity, and
+    the cache consult bypasses the stub."""
 
-    __slots__ = ("shape",)
+    __slots__ = ("shape", "content_id")
 
-    def __init__(self, shape):
+    def __init__(self, shape, content_id=None):
         self.shape = tuple(shape)
+        self.content_id = content_id
 
 
 def _make_volume(spec: ScenarioSpec, rng: np.random.Generator, execute: bool):
@@ -306,9 +409,6 @@ def simulate(engine, cfg: SimConfig) -> SimReport:
     next admission group, advance the clock by its modeled service, shed
     whatever expired meanwhile — until both the trace and the queue are
     empty."""
-    for name in ("resilience", "fault_plan", "cache", "content_skew"):
-        if getattr(cfg, name) is not None:
-            raise ValueError(f"SimConfig.{name}: {NOT_PORTED_13B}")
     rng = np.random.default_rng(cfg.seed)
     proc = ARRIVAL_PROCESSES[cfg.process]
     times = proc(horizon_s=cfg.horizon_s, rng=rng, **cfg.process_kwargs)
@@ -316,8 +416,31 @@ def simulate(engine, cfg: SimConfig) -> SimReport:
     # volumes drawn after the whole arrival and mix sequence, so that
     # payloads never perturb arrival sampling (stubs skip the draws)
     vols = [_make_volume(spec, rng, cfg.execute) for _, spec in arrivals]
+    if cfg.content_skew is not None:
+        # content identities are per-index counter-hash draws, not the
+        # shared rng, so skew cannot perturb the sequences above; garbage
+        # volumes stay identity-less
+        for idx, ((_, spec), v) in enumerate(zip(arrivals, vols)):
+            if isinstance(v, _ShapeStub) and not spec.garbage:
+                v.content_id = zipf_content_id(cfg.seed, idx, cfg.content_skew, cfg.content_universe)
+    cache = None
+    if cfg.cache is not None:
+        cache = (
+            cfg.cache
+            if isinstance(cfg.cache, ArtifactCache)
+            else ArtifactCache(cfg.cache if isinstance(cfg.cache, CacheConfig) else None, fault_plan=cfg.fault_plan)
+        )
     clock = VirtualClock()
-    sched = RequestScheduler(engine, cfg.scheduler, clock=clock, service_model=cfg.service, execute=cfg.execute)
+    sched = RequestScheduler(
+        engine,
+        cfg.scheduler,
+        clock=clock,
+        service_model=cfg.service,
+        execute=cfg.execute,
+        resilience=cfg.resilience,
+        fault_plan=cfg.fault_plan,
+        cache=cache,
+    )
     i = 0
     refused = 0
     n = len(arrivals)

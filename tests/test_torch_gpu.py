@@ -438,25 +438,54 @@ def test_decode_attention_replays_in_a_cuda_graph(cuda, dtype):
         assert err <= _k4_tol(dtype), (pos, err)
 
 
+#: the child of test_decode_attention_is_one_kernel_a_call: one K4 call a
+#: case under torch.profiler, in a process of its own (a profiler session
+#: in a process that has run many kernels may see no device event), its
+#: {kernel name: count} per case printed as JSON
+_K4_PROFILE_CHILD = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import decode_attention as k4
+
+cases = [(4, 32, 4, 64, 1024, 255), (1, 8, 1, 32, 16, 9)]
+out = []
+for B, H, KV, hd, S, pos in cases:
+    g = torch.Generator().manual_seed(22)
+    q, k, v = [torch.randn(s, generator=g).cuda() for s in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+    k4.decode_attention(q, k, v, pos)  # warm-up outside the profile: build and workspace
+    pos_dev = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    for p in (pos, pos_dev):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            k4.decode_attention(q, k, v, p)
+            torch.cuda.synchronize()
+        out.append({e.key: e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
+print(json.dumps(out))
+"""
+
+
 def test_decode_attention_is_one_kernel_a_call(cuda):
     """torch.profiler sees exactly one CUDA kernel for each K4 call, with a
-    host pos and with a pos on the card, at a split and an unsplit shape."""
-    from torch.profiler import ProfilerActivity, profile
+    host pos and with a pos on the card, at a split and an unsplit shape.
+    The calls are profiled in a fresh process, as ``chip_smoke.py
+    --k4-kernels`` does: a profiler session inside a process that has
+    already run many kernels (this test after the others) may record no
+    device event at all."""
+    import json
+    import os
+    import subprocess
+    import sys
 
-    cases = [(4, 32, 4, 64, 1024, 255), (1, 8, 1, 32, 16, 9)]
-    inputs = [(_k4_inputs(22, *c[:5], torch.float32, cuda), c[5]) for c in cases]
-    for (q, k, v), pos in inputs:  # warm-up outside the profile: build and workspace
-        k4.decode_attention(q, k, v, pos)
-    torch.cuda.synchronize()
-    for (q, k, v), pos in inputs:
-        pos_dev = torch.full((1,), pos, dtype=torch.int32, device=cuda)
-        torch.cuda.synchronize()
-        for p in (pos, pos_dev):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                k4.decode_attention(q, k, v, p)
-                torch.cuda.synchronize()
-            on_card = {e.key: e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
-            assert len(on_card) == 1 and sum(on_card.values()) == 1 and "decode_attn" in next(iter(on_card)), on_card
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = {**os.environ, "PYTHONPATH": src + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    run = subprocess.run([sys.executable, "-c", _K4_PROFILE_CHILD], capture_output=True, text=True, env=env,
+                         timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    seen = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(seen) == 4
+    for on_card in seen:
+        assert len(on_card) == 1 and sum(on_card.values()) == 1 and "decode_attn" in next(iter(on_card)), seen
 
 
 def test_decode_attention_reuses_its_workspace(cuda):
@@ -869,6 +898,137 @@ def test_a_kernel_that_fails_in_a_drained_request_is_a_permanent_fault(cuda, mon
     assert comps[bad].result is None and rec.executor == "cuda_fused"
     assert comps[good].record.status == "ok" and comps[good].result.segmentation is not None
     assert engine.scheduler().stats.permanent_faults == 1
+
+
+def _launch_counts():
+    torch.cuda.synchronize()
+    return (conv_kernel.launches, conv_kernel.reduced_launches, mk.launches, mk.reduced_launches)
+
+
+def test_cache_hit_launches_nothing_and_returns_an_unshared_tensor(cuda):
+    """Three identical volumes drained through an ArtifactCache execute
+    once (two coalesced), the same volume again completes at admission as
+    a hit with no kernel launched, and every segmentation equals submit's
+    while no two completions, nor a completion and the cache entry, share
+    storage on the card."""
+    from repro_torch.serving.cache import ArtifactCache
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    engine, vols = _queued_engine(cuda)
+    sched = engine.scheduler(SchedulerConfig(), cache=ArtifactCache())
+    for _ in range(3):
+        engine.submit_async(vols[0].clone())
+    before = _launch_counts()
+    comps = engine.drain()
+    after = _launch_counts()
+    assert after[0] - before[0] == len(engine.cfg.model.dilations)  # one execution under cuda_fused
+    assert sorted(c.outcome for c in comps) == ["coalesced", "coalesced", "completed"]
+    hit = engine.submit_async(vols[0].clone())
+    assert _launch_counts() == after  # answered at admission
+    comps += engine.drain()
+    assert _launch_counts() == after
+    h = next(c for c in comps if c.id == hit)
+    assert h.record.cache_hit and h.outcome == "completed" and sched.stats.cache_hits == 1
+    assert sched.cache.stats.quarantined_served == 0 and sched.stats.conserved()
+    expect = engine.submit(vols[0]).segmentation
+    (entry,) = [e for e in sched.cache.entries.values() if e.result is not None]
+    segs = [c.result.segmentation for c in comps] + [entry.result.segmentation]
+    assert all(s.device.type == "cuda" and torch.equal(s, expect) for s in segs)
+    assert len({s.data_ptr() for s in segs}) == len(segs)
+    h.result.segmentation.fill_(7)
+    assert all(torch.equal(s, expect) for s in segs if s is not h.result.segmentation)
+
+
+def test_breaker_demotes_k2_to_k1_and_restores(cuda):
+    """Injected transient faults on cuda_megakernel (raised before any
+    launch) trip the breaker: the next requests serve under cuda_fused
+    (K1, no K2); after the fault window and the cooldown one half-open
+    probe serves under cuda_megakernel (K2) and closes the breaker. Each
+    segmentation equals submit's under the executor that served it."""
+    from repro_torch.serving import resilience as rs
+    from repro_torch.serving.scheduler import SchedulerConfig
+    from repro_torch.serving.simulator import VirtualClock
+
+    engine, vols = _queued_engine(cuda)
+    clock = VirtualClock(100.0)
+    policy = rs.ResiliencePolicy(retry=rs.RetryPolicy(max_attempts=3, backoff_base_s=0.01, seed=0),
+                                 breaker=rs.BreakerConfig(trip_after=2, cooldown_s=0.5))
+    plan = rs.FaultPlan(seed=0, rules=(rs.FaultRule(kind="transient", rate=1.0, executor_substr="megakernel",
+                                                    t0=100.0, t1=101.0),))
+    sched = engine.scheduler(SchedulerConfig(max_batch_requests=1), clock=clock, resilience=policy, fault_plan=plan)
+    ids = [engine.submit_async(v, executor="cuda_megakernel") for v in vols[:2]]
+    before = _launch_counts()
+    comps = engine.drain()
+    mid = _launch_counts()
+    assert [c.record.executor for c in comps] == ["cuda_fused", "cuda_fused"]
+    assert mid[2] == before[2] and mid[0] - before[0] == 2 * len(engine.cfg.model.dilations)
+    assert [tr["state"] for tr in sched.breaker.transitions] == ["open"]
+    assert all(r.extra.get("injected") == "transient" or "injected transient" in r.extra.get("error", "")
+               for r in engine.log.records if r.status == "fail")
+    clock.advance_to(102.0)  # past the window and the cooldown
+    probe = engine.submit_async(vols[2], executor="cuda_megakernel")
+    comps += engine.drain()
+    end = _launch_counts()
+    segments = len(mk.plan_for_config(engine.cfg.model, (32, 32, 32)).segments)
+    assert end[2] - mid[2] == segments and end[0] == mid[0]
+    assert [tr["state"] for tr in sched.breaker.transitions] == ["open", "half_open", "closed"]
+    st = sched.stats
+    assert st.faulted_requests == st.recovered_requests and st.retries >= 2 and st.conserved()
+    by_id = {c.id: c for c in comps}
+    assert by_id[probe].record.executor == "cuda_megakernel"
+    for rid, v in zip(ids + [probe], vols):
+        rec = by_id[rid].record
+        assert rec.status == "ok"
+        expect = engine.submit(v, mode=rec.mode, executor=rec.executor).segmentation
+        assert torch.equal(by_id[rid].result.segmentation, expect)
+
+
+def test_breaker_with_k1_faulting_never_serves_a_plain_forward(cuda):
+    """Injected transient faults on every CUDA executor (K2's and K1's
+    alike) walk the breaker down the card's ladder: cuda_megakernel,
+    cuda_fused, then the sub-volume failsafe under cuda_fused, where it
+    stops. No attempt runs under the plain forwards (torch, streaming):
+    the requests fail with the injected faults, and no kernel launches."""
+    from repro_torch.serving import resilience as rs
+    from repro_torch.serving.scheduler import SchedulerConfig
+    from repro_torch.serving.simulator import VirtualClock
+
+    engine, vols = _queued_engine(cuda)
+    policy = rs.ResiliencePolicy(retry=rs.RetryPolicy(max_attempts=4, backoff_base_s=0.01, seed=0),
+                                 breaker=rs.BreakerConfig(trip_after=1, cooldown_s=1000.0))
+    plan = rs.FaultPlan(seed=0, rules=(rs.FaultRule(kind="transient", rate=1.0, executor_substr="cuda_"),))
+    sched = engine.scheduler(SchedulerConfig(max_batch_requests=1), clock=VirtualClock(100.0), resilience=policy,
+                             fault_plan=plan)
+    for v in vols:
+        engine.submit_async(v, executor="cuda_megakernel")
+    before = _launch_counts()
+    comps = engine.drain()
+    assert _launch_counts() == before
+    tried = [(r.mode, r.executor) for r in engine.log.records]
+    assert tried and all(e.startswith("cuda_") for _, e in tried), tried
+    assert ("subvolume", "cuda_fused") in tried
+    assert all(r.status == "fail" and "injected transient" in r.extra.get("error", "") for r in engine.log.records)
+    assert len(comps) == len(vols) and all(c.record.status == "fail" for c in comps)
+    assert [tr["rung"] for tr in sched.breaker.transitions][:3] == [1, 2, 3]
+    assert sched.stats.conserved()
+
+
+def test_conform_memo_on_the_card(cuda):
+    """Two submits of one volume under PipelineConfig(conform_memo=...):
+    one conform, equal segmentations, and the memo's conformed volume on
+    the card bit-equal to a fresh conform after both."""
+    from repro_torch.core import conform
+    from repro_torch.serving.cache import ConformMemo
+    from repro_torch.serving.engine import SegmentationEngine
+
+    engine, vols = _queued_engine(cuda)
+    memo = ConformMemo()
+    engine = SegmentationEngine(engine.params, dataclasses.replace(engine.cfg, conform_memo=memo), device=cuda)
+    first, second = engine.submit(vols[0]), engine.submit(vols[0])
+    assert (memo.hits, memo.misses) == (1, 1)
+    assert torch.equal(first.segmentation, second.segmentation)
+    (held,) = memo.entries.values()
+    assert held.device.type == "cuda" and torch.equal(held, conform.conform(vols[0], (32, 32, 32)))
 
 
 # ----------------------------------------------------------------- K2r ---

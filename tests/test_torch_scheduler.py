@@ -3,7 +3,8 @@
 reference's tests/test_scheduler.py (admission, modeled execution,
 ordering, telemetry stamping, the queued API), its property suite's
 pinned grid (tests/test_scheduler_properties.py::TestGridFallback), the
-guard for what item 13b brings, and queued execution against the
+hooks item 13b brought (resilience, fault plans, the cache, content
+skew) against the reference's, and queued execution against the
 reference's engine on the same bridged weights.
 
 Everything runs on the CPU: the virtual clock with modeled execution
@@ -11,6 +12,7 @@ Everything runs on the CPU: the virtual clock with modeled execution
 16^3 under executor ``torch`` (the reference's ``xla``)."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ import torch
 
 from repro.core import meshnet as ref_meshnet
 from repro.core.pipeline import PipelineConfig as RefPipelineConfig
+from repro.serving import scheduler as ref_scheduler
 from repro.serving.engine import SegmentationEngine as RefEngine
 from repro_torch import bridge
 from repro_torch.core import executors, meshnet
@@ -29,6 +32,9 @@ from repro_torch.serving import scheduler as sched_mod
 from repro_torch.serving.engine import SegmentationEngine
 from repro_torch.serving.scheduler import PriorityClass, QueueFullError, RequestScheduler, SchedulerConfig
 from repro_torch.serving.simulator import ScenarioSpec, ServiceModel, SimConfig, VirtualClock, simulate
+
+from test_torch_resilience import modeled_ref_engine, reference_names, simulate_both  # noqa: F401  (fixture)
+from test_torch_serving_golden import reference_models  # noqa: F401  (fixture)
 
 SMALL = dict(dilations=(1, 2, 4), channels=5)
 
@@ -289,20 +295,82 @@ class TestRouterHooks:
             make_sched(execute=True).run_batch_until(b, until=1.0)
 
 
-# -------------------------------------------------- item 13b is not here ---
+# ------------------------------------------ the hooks item 13b brought ---
+
+
+def ref_sched(**cfg_kwargs):
+    """The reference's scheduler over ``make_engine``'s configuration, on
+    the modeled path (which reads no weights, so the engine has none)."""
+    from repro.core.meshnet import MeshNetConfig as RefMeshNetConfig
+    from repro.serving import simulator as ref_sim
+
+    cfg_kwargs.setdefault("native_shapes", True)
+    pc = RefPipelineConfig(model=RefMeshNetConfig(**SMALL), volume_shape=(16, 16, 16), cube=8, overlap=4,
+                           min_component_size=4, executor="xla")
+    return ref_scheduler.RequestScheduler(RefEngine(None, pc), ref_scheduler.SchedulerConfig(**cfg_kwargs),
+                                          clock=ref_sim.VirtualClock(), service_model=ref_sim.ServiceModel(),
+                                          execute=False)
+
+
+def _hook(name, res_mod, cache_mod, executor):
+    if name == "resilience":
+        return res_mod.ResiliencePolicy(retry=res_mod.RetryPolicy(max_attempts=3, seed=0),
+                                        breaker=res_mod.BreakerConfig(trip_after=1, cooldown_s=1e9))
+    if name == "fault_plan":
+        return res_mod.FaultPlan(seed=2, rules=(res_mod.FaultRule(kind="transient", rate=0.4),
+                                                res_mod.FaultRule(kind="permanent", rate=0.3, executor_substr=executor)))
+    return cache_mod.ArtifactCache()
 
 
 @pytest.mark.parametrize("hook", ["resilience", "fault_plan", "cache"])
-def test_scheduler_refuses_what_13b_brings(hook):
-    with pytest.raises(ValueError, match="13b"):
-        RequestScheduler(make_engine(), **{hook: object()})
+def test_scheduler_takes_what_13b_brings(hook):
+    """Each hook constructs in the port and decides as the reference's:
+    with a resilience policy (and the fault plan it retries), a fault plan
+    alone, and a cache, the same requests (two repeated volumes among
+    them) end with the same outcome, attempt, fail type, mode, executor
+    and cache_hit, and the same counters."""
+    from repro.serving import cache as ref_cache
+    from repro.serving import resilience as ref_res
+    from repro_torch.serving import cache, resilience
+
+    seen = []
+    for sched, res_mod, cache_mod, x in ((make_sched(), resilience, cache, "torch"),
+                                         (ref_sched(), ref_res, ref_cache, "xla")):
+        kw = {hook: _hook(hook, res_mod, cache_mod, x)}
+        if hook == "resilience":
+            kw["fault_plan"] = _hook("fault_plan", res_mod, cache_mod, x)
+        sched = type(sched)(sched.engine, sched.cfg, clock=sched.clock, service_model=sched.service_model,
+                            execute=False, **kw)
+        for i, seed in enumerate((0, 1, 0, 2, 1, 3, 4, 5)):
+            sched.submit(vol(seed=seed), priority=("interactive", "standard")[i % 2], arrival_s=0.0)
+        comps = sched.drain()
+        seen.append(([(c.id, c.outcome, c.record.attempt, c.record.fail_type, c.record.mode,
+                       executors.REFERENCE_NAMES.get(c.record.executor, c.record.executor), c.record.cache_hit)
+                      for c in comps], dataclasses.astuple(sched.stats)))
+    assert seen[0] == seen[1]
+    assert sched.stats.conserved()
 
 
-@pytest.mark.parametrize("field,value", [("resilience", object()), ("fault_plan", object()), ("cache", object()),
-                                         ("content_skew", 1.1)])
-def test_simulator_refuses_what_13b_brings(field, value):
-    with pytest.raises(ValueError, match="13b"):
-        simulate(make_engine(), SimConfig(horizon_s=1.0, **{field: value}))
+SIM_HOOKS = {
+    "resilience": lambda m, c, x: dict(resilience=m.ResiliencePolicy(retry=m.RetryPolicy(max_attempts=2, seed=0))),
+    "fault_plan": lambda m, c, x: dict(fault_plan=m.FaultPlan(seed=0, rules=(m.FaultRule(kind="transient", rate=0.2),
+                                                                           m.FaultRule(kind="straggler", rate=0.3)))),
+    "cache": lambda m, c, x: dict(cache=c.CacheConfig(), content_skew=1.1, content_universe=8),
+    "content_skew": lambda m, c, x: dict(content_skew=1.1),
+}
+
+
+@pytest.mark.parametrize("field", sorted(SIM_HOOKS))
+def test_simulator_takes_what_13b_brings(reference_models, reference_names, field):  # noqa: F811
+    """Each ``SimConfig`` field item 13b brought runs in the port: the
+    steady preset's 60 virtual seconds with it set give the reference's
+    summary (its byte models and the cache payload's executor names
+    injected, the summary's names mapped), with the resilience and cache
+    blocks exactly when their layer is configured."""
+    rep, got, expect = simulate_both(reference_models, modeled_ref_engine(), "steady", SIM_HOOKS[field])
+    assert json.dumps(got, sort_keys=True) == json.dumps(expect, sort_keys=True)
+    assert ("resilience" in got) == (field in ("resilience", "fault_plan"))
+    assert ("cache" in got) == (field == "cache")
 
 
 # ------------------------------------- the property suite's pinned grid ---

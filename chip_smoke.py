@@ -2,8 +2,9 @@
 """Drive the PyTorch port's segmentation, training and LM-serving main
 paths on one CUDA card, and segmentation's sub-volume mode and bf16 and
 int8w policies (through K1r and K2r), its Z-sharded executors, its
-queued serving through the request scheduler, and the resilience layer
-and artifact cache behind it.
+queued serving through the request scheduler, the resilience layer and
+artifact cache behind it, the replicated fleet of schedulers, and the
+U-Net baseline.
 
     python3 chip_smoke.py                  # on a machine with an H100
     python3 chip_smoke.py --cpu-rehearsal  # tiny shapes, plain paths, CPU
@@ -239,16 +240,48 @@ staging) a segment. Phases, each printed on lines of its own:
                 equal segmentations, the memo's volume unchanged; the
                 preprocessing ms of the miss, the hit and a memo-less
                 conform
-13. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r,
+13. fleet   the replicated fleet (serving/fleet.py): replicas in phase 11's
+            configuration, each engine with its own copy of the weights,
+            each line with the card's name and power limit:
+            13a main path: a Fleet of 2 replicas under cache_affinity,
+                executed; wave 1 an fp32 (auto) and a bf16 request, drained,
+                wave 2 two fp32 (auto), a bf16 and an fp32 under
+                cuda_megakernel, drained; every count set to 0 just before
+                and read just after: K1, K1r and K2 exactly what the records
+                imply; conserved, every ledger entry served once, cold
+                compiles = distinct (replica, signature) pairs, wave 2's
+                warm signatures routed to their warm replica (affinity
+                hits), each segmentation equal to submit's on a standalone
+                engine; each replica's first request of a signature (host
+                ms) beside its later ones;
+            13b failover: 4 fp32 requests round-robin, crash_replica(0) with
+                2 queued there: each re-dispatched once, served on replica 1
+                equal to submit's, launches exactly the 4 records'; then
+                drain_replica(1) on a fresh fleet: no route to it, retired;
+            13c simulate_fleet(fleet_preset("fleet_steady", horizon_s=60))
+                executed on reference_engine replicas: conserved, every
+                request but the garbage lane ok under a card executor, each
+                fid's replica, dispatches and outcome equal to the same
+                configuration's modeled run;
+            13d FleetConfig(cache=CacheConfig()): a 256^3 volume served on
+                replica 0, its byte-equal twin routed to replica 1 an
+                admission hit with 0 launches, no storage shared
+14. unet3d  the U-Net baseline (core/unet3d.py), base 8, 2 levels: at 64^3
+            the card's logits within 1e-4 of the CPU forward's on the same
+            weights (relative to the largest, TF32 off), argmax agreeing on
+            >= 99.99 %; at 256^3 its CUDA-event forward time beside
+            gwm_light's cuda_fused forward
+15. kernels one JSON line describing every ported kernel (K1-K5, K1r, K2r,
             K2z)
-14. ok      the last line, {"ok": true, "device": {...}}
+16. ok      the last line, {"ok": true, "device": {...}}
 
 Any failed check raises, so the script exits non-zero and prints no ok
 line. Without a CUDA device (and without --cpu-rehearsal) it exits 1.
 --cpu-rehearsal runs phases 1, 4, 5, 7b, 7c, 8c (TinyLlama's smoke
-config), 9b, 9e, 9c (cube 8, overlap 4), 10a, 10b, 11 and 12 at a tiny size on the CPU with
-the plain versions, to find wrong paths and shapes without a card; it
-never prints the ok line.
+config), 9b, 9e, 9c (cube 8, overlap 4), 10a, 10b, 11, 12, 13 (13c over
+10 virtual seconds) and 14 (at 16^3) at a tiny size on the CPU with the
+plain versions, to find wrong paths and shapes without a card; it never
+prints the ok line.
 """
 
 from __future__ import annotations
@@ -275,7 +308,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import configs as lm_configs  # noqa: E402
 from repro_torch import synchronize, tree  # noqa: E402
-from repro_torch.core import conform, executors, meshnet, pipeline, spatial_shard  # noqa: E402
+from repro_torch.core import conform, executors, meshnet, pipeline, spatial_shard, unet3d  # noqa: E402
 from repro_torch.core.pipeline import PipelineConfig  # noqa: E402
 from repro_torch.data import mri  # noqa: E402
 from repro_torch.kernels import _build, ops, quantize, ref  # noqa: E402
@@ -288,7 +321,8 @@ from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.serving.engine import LMEngine, Request, SegmentationEngine  # noqa: E402
 from repro_torch.serving import cache as cache_mod  # noqa: E402
 from repro_torch.serving import simulator  # noqa: E402
-from repro_torch.serving.cache import ArtifactCache, ConformMemo  # noqa: E402
+from repro_torch.serving.cache import ArtifactCache, CacheConfig, ConformMemo  # noqa: E402
+from repro_torch.serving.fleet import Fleet, FleetConfig, fleet_preset, simulate_fleet  # noqa: E402
 from repro_torch.serving.resilience import BreakerConfig, FaultPlan, FaultRule, ResiliencePolicy, RetryPolicy  # noqa: E402
 from repro_torch.serving.scheduler import RequestScheduler, SchedulerConfig  # noqa: E402
 from repro_torch.telemetry.budget import MemoryBudget  # noqa: E402
@@ -2703,6 +2737,285 @@ def phase_resilience(dev, size: int, rehearsal: bool) -> dict:
     return out
 
 
+# ------------------------------------------------------ phase 13: the fleet ---
+
+
+def fleet_engines(dev, size: int, cube: int, overlap: int):
+    """Phase 11's served configuration as an engine factory: gwm_light at
+    size^3 with brain_mask_fast as the crop model, each engine with its own
+    copy of the weights (the mask model's too); its volumes."""
+    cfg, mcfg, params, mparams, vols, _ = served_models(dev, size)
+    pc = PipelineConfig(name="gwm_light", model=cfg, volume_shape=(size,) * 3, use_cropping=True, cube=cube,
+                        overlap=overlap)
+
+    def factory():
+        return SegmentationEngine(tree.map(torch.clone, params), pc, mask_model=(tree.map(torch.clone, mparams), mcfg),
+                                  device=dev)
+
+    return cfg, mcfg, vols, factory
+
+
+def phase_fleet(dev, size: int, rehearsal: bool) -> dict:
+    t_phase = time.perf_counter()
+    cube, overlap = (8, 4) if rehearsal else (CUBE, OVERLAP)
+    card = card_line(rehearsal)
+
+    def say(text: str) -> None:
+        print(f"{text} ({card})")
+
+    say(f"== phase 13: the replicated fleet (serving/fleet.py) at {size}^3")
+    cfg, mcfg, vols, factory = fleet_engines(dev, size, cube, overlap)
+    shape = (size,) * 3
+    gen = torch.Generator().manual_seed(SEED + 13)
+    vols = vols + [mri.generate(gen, mri.SyntheticMRIConfig(shape=shape), device=dev)[0] for _ in range(3)]
+    cuda = dev.type == "cuda"
+    fused = "cuda_fused" if cuda else "torch"
+    standalone = factory()
+    plain = {}
+
+    def submit_of(vol, rec):
+        """submit's segmentation of ``vol`` on a standalone engine at the
+        record's mode, executor and precision (memoised)."""
+        key = (id(vol), rec.mode, rec.executor, rec.precision)
+        if key not in plain:
+            plain[key] = standalone.submit(vol, mode=rec.mode, executor=rec.executor,
+                                           precision=rec.precision).segmentation
+        return plain[key]
+
+    def implied(recs) -> dict:
+        return summed(implied_launches(r, cfg, mcfg, shape, cube, overlap) for r in recs) if cuda else summed([])
+
+    def executed_fleet(**kw):
+        return Fleet(FleetConfig(replicas=2, execute=True, scheduler=SchedulerConfig(max_batch_requests=4), **kw),
+                     engine_factory=factory)
+
+    out = {}
+    t_13a = time.perf_counter()
+    say(f"set-up (the served models, {len(vols)} volumes, a standalone engine) took {t_13a - t_phase:.1f} s")
+
+    say("-- 13a: 2 replicas under cache_affinity, executed: wave 1 an fp32 (auto) and a bf16 request, drained; "
+        "wave 2 two fp32 (auto), a bf16 and an fp32 under cuda_megakernel, drained")
+    fl = executed_fleet(policy="cache_affinity")
+    w0 = [r.engine.params["layers"][0]["w"].data_ptr() for r in fl.replicas]
+    check(len(set(w0)) == 2 and w0[0] != standalone.params["layers"][0]["w"].data_ptr(),
+          "two replicas (or a replica and the standalone engine) share their weights")
+    waves = [[(vols[0], None, None), (vols[1], None, "bf16")],
+             [(vols[3], None, None), (vols[4], None, None), (vols[5], None, "bf16"), (vols[2], "cuda_megakernel", None)]]
+    asked, warm_at_submit, drain_s = {}, {}, []
+
+    def main_path():
+        for wave in waves:
+            for vol, executor, precision in wave:
+                key, _ = fl.replicas[0].sched.peek_signature(vol, executor=executor, precision=precision)
+                warm = {r.id for r in fl.replicas if key in r.warm}
+                fid = fl.submit(vol, executor=executor, precision=precision)
+                asked[fid] = (vol, executor, precision)
+                warm_at_submit[fid] = warm
+            synchronize(dev)
+            t0 = time.perf_counter()
+            fl.drain()
+            synchronize(dev)
+            drain_s.append(time.perf_counter() - t0)
+
+    _, counts = count_launches(dev, main_path)
+    stats = [r.sched.stats for r in fl.replicas]
+    say(f"drained {len(fl.ledger)} requests in {[round(s * 1e3, 3) for s in drain_s]} ms host clock (a wave each); "
+        f"routes {fl.routes}, affinity hits {fl.affinity_hits}, cold compiles {fl.cold_compiles}; per replica "
+        f"admitted {[s.admitted for s in stats]}, batches {[s.batches for s in stats]}; launches {counts}")
+    check(fl.conserved() and all(s.conserved() for s in stats), "the fleet is not conserved")
+    check(all(e.completions_seen == 1 and e.outcome == "completed" for e in fl.ledger),
+          f"ledger: {[(e.fid, e.outcome, e.completions_seen) for e in fl.ledger]}")
+    pairs = sum(len(r.warm) for r in fl.replicas)
+    check(fl.cold_compiles == pairs == 3, f"cold compiles {fl.cold_compiles}, distinct (replica, signature) {pairs}")
+    hits = [fid for fid, warm in warm_at_submit.items() if warm]
+    check(fl.affinity_hits == len(hits) == 3 and all(fl.ledger[f].replica in warm_at_submit[f] for f in hits),
+          f"affinity: {fl.affinity_hits} hits, warm at submit {warm_at_submit}, routed "
+          f"{[(e.fid, e.replica) for e in fl.ledger]}")
+    recs = []
+    by_sig: dict = {}
+    for e in fl.ledger:
+        vol, executor, precision = asked[e.fid]
+        rec = e.completion.record
+        want = "cuda_megakernel" if executor == "cuda_megakernel" else fused
+        check(rec.status == "ok" and rec.executor == want and rec.precision == (precision or "fp32")
+              and rec.replica_id == e.replica, f"fid {e.fid}: {rec.status} {rec.executor} {rec.precision} "
+              f"replica {rec.replica_id}/{e.replica} {rec.fail_type} {rec.extra.get('error')}")
+        check(torch.equal(e.completion.result.segmentation, submit_of(vol, rec)),
+              f"fid {e.fid}'s segmentation differs from submit's")
+        recs.append(rec)
+        by_sig.setdefault((e.replica, rec.executor, rec.precision), []).append(rec.times.total() * 1e3)
+    check(owned([e.completion for e in fl.ledger]), "two completions share a segmentation")
+    expect = implied(recs)
+    check(counts == expect, f"the fleet launched {counts}, its records imply {expect}")
+    check(not cuda or (counts["K1"] > 0 and counts["K1r"] > 0 and counts["K2"] > 0), f"13a launched {counts}")
+    for (rid, executor, precision), ms in sorted(by_sig.items()):
+        say(f"replica {rid} {executor} {precision}: first request {ms[0]:.3f} ms host clock (pipeline stages), later "
+            f"{[round(m, 3) for m in ms[1:]]}; the service model charges cold_compile_s "
+            f"{fl.cfg.service.cold_compile_s} s once per (replica, signature)")
+    out["main"] = counts
+    out["first_use_ms"] = {f"{rid}/{ex}/{pr}": ms for (rid, ex, pr), ms in sorted(by_sig.items())}
+    t_13b = time.perf_counter()
+    say(f"13a took {t_13b - t_13a:.1f} s")
+
+    say("-- 13b: failover: 4 fp32 requests round-robin on 2 replicas, crash_replica(0) with 2 queued there, drain; "
+        "then drain_replica(1) on a fresh fleet and 2 requests")
+    fl = executed_fleet(policy="round_robin")
+    batch = [vols[i] for i in (0, 3, 4, 5)]
+    fids = [fl.submit(v) for v in batch]
+    on0 = [e.fid for e in fl.ledger if e.replica == 0]
+    check(len(on0) == 2 and len(fl.replicas[0].sched.queue) == 2, f"queued on replica 0: {on0}")
+
+    def crash_then_drain():
+        fl.crash_replica(0)
+        fl.drain()
+
+    _, counts = count_launches(dev, crash_then_drain)
+    recs = [e.completion.record for e in fl.ledger]
+    say(f"crash_replica(0): redispatched {fl.redispatched}, evacuated {fl.replicas[0].sched.stats.evacuated}; served "
+        f"on {[e.replica for e in fl.ledger]}, dispatches {[e.dispatches for e in fl.ledger]}; launches {counts}")
+    check(fl.redispatched == len(on0) and fl.replicas[0].crashed and fl.replicas[0].sched.stats.evacuated == len(on0)
+          and fl.replicas[0].sched.stats.completed == 0 and fl.conserved(), f"failover: {fl.replicas[0].sched.stats}")
+    for fid, vol in zip(fids, batch):
+        e = fl.ledger[fid]
+        rec = e.completion.record
+        check(e.replica == 1 == rec.replica_id and e.completions_seen == 1 and e.outcome == "completed"
+              and e.dispatches == (2 if fid in on0 else 1) and rec.status == "ok" and rec.executor == fused,
+              f"fid {fid}: replica {e.replica} dispatches {e.dispatches} {e.outcome} {rec.status}")
+        check(torch.equal(e.completion.result.segmentation, submit_of(vol, rec)),
+              f"fid {fid}'s segmentation differs from submit's")
+    expect = implied(recs)
+    check(counts == expect, f"failover launched {counts}, the {len(recs)} served records imply {expect}")
+    out["failover"] = counts
+
+    fl = executed_fleet(policy="cache_affinity")
+    fl.drain_replica(1)
+    pair = [vols[0], vols[3]]
+    _, counts = count_launches(dev, lambda: ([fl.submit(v) for v in pair], fl.drain()))
+    recs = [e.completion.record for e in fl.ledger]
+    say(f"drain_replica(1): served on {[e.replica for e in fl.ledger]}; replica 1 retired {fl.replicas[1].retired}, "
+        f"admitted {fl.replicas[1].sched.stats.admitted}; scale events {fl.scale_log}; launches {counts}")
+    check(all(e.replica == 0 and e.outcome == "completed" for e in fl.ledger) and fl.replicas[1].retired
+          and fl.replicas[1].sched.stats.admitted == 0 and fl.conserved(), "a drained replica took a route")
+    check(all(torch.equal(e.completion.result.segmentation, submit_of(v, e.completion.record))
+              for e, v in zip(fl.ledger, pair)), "a segmentation after the drain differs from submit's")
+    check(counts == implied(recs), f"after the drain launched {counts}, the records imply {implied(recs)}")
+    t_13c = time.perf_counter()
+    say(f"13b took {t_13c - t_13b:.1f} s")
+
+    horizon = 10.0 if rehearsal else 60.0
+    say(f"-- 13c: simulate_fleet(fleet_preset('fleet_steady', horizon_s={horizon:g})) executed on "
+        f"reference_engine replicas, beside the same configuration modeled on this host")
+
+    def ref_engine():
+        return simulator.reference_engine(device=dev)
+
+    cfg_x = fleet_preset("fleet_steady", horizon_s=horizon)
+    cfg_x.execute = True
+    t0 = time.perf_counter()
+    rep, counts = count_launches(dev, lambda: simulate_fleet(cfg_x, ref_engine))
+    wall = time.perf_counter() - t0
+    modeled = simulate_fleet(fleet_preset("fleet_steady", horizon_s=horizon), ref_engine)
+    s = rep.summary()
+    say(f"fleet_steady executed: {rep.arrived} arrivals, {s['requests']}, batches {s['batches']}, affinity "
+        f"{s['affinity']}, in {wall:.3f} s wall; virtual latency ms {s['latency_ms']}; launches {counts}")
+    check(rep.fleet.conserved(), "the executed fleet_steady is not conserved")
+    card_execs = ("cuda_fused", "cuda_megakernel") if cuda else ("torch",)
+    garbage = 0
+    for e in rep.fleet.ledger:
+        rec = e.completion.record
+        if rec.mode == "none":
+            garbage += 1
+            check(rec.status == "fail" and rec.fail_type == "permanent_fault", f"garbage fid {e.fid}: {rec.fail_type}")
+        else:
+            check(rec.status == "ok" and rec.executor in card_execs,
+                  f"fid {e.fid}: {rec.status} {rec.executor} {rec.fail_type} {rec.extra.get('error')}")
+    dec_x = [(e.fid, e.replica, e.dispatches, e.outcome) for e in rep.fleet.ledger]
+    dec_m = [(e.fid, e.replica, e.dispatches, e.outcome) for e in modeled.fleet.ledger]
+    differ = [(a, b) for a, b in zip(dec_x, dec_m) if a != b]
+    same_finish = [e.finish_s for e in rep.fleet.ledger] == [e.finish_s for e in modeled.fleet.ledger]
+    say(f"executed against modeled: {len(dec_x)} and {len(dec_m)} fids, {len(differ)} differ in (replica, "
+        f"dispatches, outcome), 0 exempt; first differing {differ[0] if differ else None}; finish times equal "
+        f"{same_finish}; {garbage} garbage requests failed typed")
+    check(len(dec_x) == len(dec_m) and not differ, f"the executed fleet decided otherwise than the modeled one: "
+          f"first differing (executed, modeled) {differ[0] if differ else None}")
+    check(garbage > 0 or rehearsal, "the trace had no garbage request")
+    check(not cuda or (counts["K1"] > 0 and counts["K1r"] > 0), f"13c launched {counts}")
+    out["simulate"] = counts
+    out["simulate_s"] = wall
+    t_13d = time.perf_counter()
+    say(f"13c took {t_13d - t_13c:.1f} s")
+
+    say("-- 13d: the shared tier: FleetConfig(cache=CacheConfig()), round_robin: a volume served on replica 0, its "
+        "byte-equal twin routed to replica 1")
+    fl = executed_fleet(policy="round_robin", cache=CacheConfig())
+    first, c_first = count_launches(dev, lambda: (fl.submit(vols[0].clone()), fl.drain())[0])
+    twin, c_twin = count_launches(dev, lambda: (fl.submit(vols[0].clone()), fl.drain())[0])
+    a, b = fl.ledger[first], fl.ledger[twin]
+    block = fl.cache.summary()
+    say(f"first: replica {a.replica} cache_hit {a.completion.record.cache_hit} launches {c_first}; twin: replica "
+        f"{b.replica} outcome {b.outcome} cache_hit {b.completion.record.cache_hit} launches {c_twin}; cache {block}")
+    check(a.replica == 0 and b.replica == 1 and b.outcome == "completed" and b.completion.record.cache_hit
+          and not a.completion.record.cache_hit and fl.replicas[1].sched.stats.cache_hits == 1,
+          "the twin was not an admission hit on the other replica")
+    check(c_first == implied([a.completion.record]) and c_twin == summed([]),
+          f"the first launched {c_first}, the twin {c_twin}")
+    check(torch.equal(b.completion.result.segmentation, a.completion.result.segmentation)
+          and torch.equal(a.completion.result.segmentation, submit_of(vols[0], a.completion.record)),
+          "the twin's segmentation differs")
+    entries = [e.result.segmentation for e in fl.cache.entries.values() if e.result is not None]
+    ptrs = [a.completion.result.segmentation.data_ptr(), b.completion.result.segmentation.data_ptr()]
+    check(owned([a.completion, b.completion]) and not set(ptrs) & {t.data_ptr() for t in entries},
+          "two completions, or a completion and the cache, share a segmentation")
+    check(fl.cache.stats.quarantined_served == 0 and fl.conserved(), "13d")
+    out["hit"] = c_twin
+    t_end = time.perf_counter()
+    out["seconds"] = t_end - t_phase
+    say(f"13d took {t_end - t_13d:.1f} s; phase 13 took {t_end - t_phase:.1f} s, its set-up included")
+    return out
+
+
+# --------------------------------------------------- phase 14: the U-Net ---
+
+
+def phase_unet3d(dev, size: int, rehearsal: bool) -> dict:
+    t_phase = time.perf_counter()
+    card = card_line(rehearsal)
+
+    def say(text: str) -> None:
+        print(f"{text} ({card})")
+
+    ucfg = unet3d.UNet3DConfig(base_channels=8, levels=2)
+    small = 16 if rehearsal else 64
+    say(f"== phase 14: the U-Net baseline (core/unet3d.py), {ucfg}, {ucfg.param_count()} parameters")
+    gen = torch.Generator().manual_seed(SEED + 14)
+    params_cpu = unet3d.init(ucfg, generator=gen, device="cpu")
+    params = tree.map(lambda t: t.to(dev), params_cpu)
+    x = torch.rand((1, small, small, small), generator=gen)
+    expect = unet3d.apply(params_cpu, x, ucfg)
+    got = unet3d.apply(params, x.to(dev), ucfg).cpu()
+    abs_err, rel = rel_err(got, expect)
+    agree = float((got.argmax(-1) == expect.argmax(-1)).float().mean())
+    say(f"at {small}^3 on the {dev.type} against the CPU forward on the same weights (TF32 off): logits max_abs_err "
+        f"{abs_err:.3e}, {rel:.3e} of the largest; argmax agrees on {agree:.6%}")
+    check(rel <= MEGA_FORWARD_REL_TOL and agree >= ARGMAX_AGREE, f"the U-Net on the {dev.type}: rel {rel}, argmax {agree}")
+    out = {"rel_err": rel}
+    if not rehearsal:
+        xs = torch.rand((1,) + (size,) * 3, generator=gen).to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        u_ms = time_ms(lambda: unet3d.apply(params, xs, ucfg), runs=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated(dev)
+        cfg = meshnet.PAPER_MODELS["gwm_light"]
+        gparams = with_bn_stats(meshnet.init(cfg, generator=gen, device=dev), gen)
+        g_ms = time_ms(lambda: ops.meshnet_apply(gparams, xs, cfg), runs=10, warmup=2)
+        say(f"times forward unet3d at {size}^3: {u_ms:.4f} ms (CUDA-event median of 10; F.conv3d, max_pool3d, "
+            f"conv_transpose3d in fp32, TF32 off; peak memory {peak / 2**30:.2f} GiB); gwm_light cuda_fused "
+            f"{g_ms:.4f} ms; parameters {ucfg.param_count()} against {cfg.param_count()}")
+        out.update(unet3d_ms=u_ms, gwm_light_ms=g_ms, peak_bytes=peak)
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_line(rows, seg_rows, launches: dict, k1_err, k2_err, k3_row, k3_err, k4_err, k4_row, views,
                  k1r_rows, k1r_err, k2r_rows, k2r_err, k2z_rows, k2z_err) -> dict:
     """Per-forward numbers of K1, K2 and K5: one gwm_light forward at 256^3,
@@ -2966,6 +3279,8 @@ def main(argv=None) -> int:
         phase_sharded(dev, size, rehearsal)
         phase_queued(dev, size, rehearsal)
         phase_resilience(dev, size, rehearsal)
+        phase_fleet(dev, size, rehearsal)
+        phase_unet3d(dev, size, rehearsal)
         print(f"cpu rehearsal done in {time.perf_counter() - t_start:.1f} s (no ok line)")
         return 0
     rows, seg_rows = phase_times(dev, card, size)
@@ -2996,6 +3311,10 @@ def main(argv=None) -> int:
     for k in ("K1", "K1r", "K2"):
         check(launches["queued"]["drain"][k] > 0, f"{k} was not launched on the queued path")
     launches["resilience"] = phase_resilience(dev, size, rehearsal)
+    launches["fleet"] = phase_fleet(dev, size, rehearsal)
+    for k in ("K1", "K1r", "K2"):
+        check(launches["fleet"]["main"][k] > 0, f"{k} was not launched on the fleet's path")
+    phase_unet3d(dev, size, rehearsal)
     print(json.dumps(kernels_line(rows, seg_rows, launches, k1_err, k2_err, k3_row, k3_err, k4_err, lm["k4_row"], views,
                                   k1r_rows, k1r_err, k2r_rows, k2r_err, k2z_rows, k2z_err)))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -11,7 +11,10 @@ the same NamedTuple type. bfloat16 leaves (numpy's ``ml_dtypes``
 bfloat16, which ``torch.tensor`` refuses) cross through a 16-bit integer
 view of the same bits, so they too cross bit-equal. The LM params tree
 (``models/model.py``: a dict with a tuple of stacked block dicts) and its
-decode caches cross the same way.
+decode caches cross the same way, and so does the U-Net baseline's tree
+(``core/unet3d.py``: DHWIO conv and up-conv kernels, as the reference's
+``unet3d.init`` lays them out; ``unet3d_from_numpy`` checks each leaf's
+shape against the configuration).
 """
 
 from __future__ import annotations
@@ -59,3 +62,19 @@ def volume_from_numpy(arr, device=None) -> torch.Tensor:
 
 def volume_to_numpy(vol: torch.Tensor) -> np.ndarray:
     return vol.detach().cpu().numpy()
+
+
+def unet3d_from_numpy(params: Any, cfg, device=None) -> Any:
+    """The reference's ``unet3d.init`` tree (numpy leaves) -> the port's
+    ``core/unet3d`` tree on ``device``, unchanged in layout: the port's
+    ``_upconv`` reads the reference's up-conv kernel as it is. Raises
+    ``ValueError`` when the tree is not ``cfg``'s (a leaf missing, extra
+    or of another shape)."""
+    from repro_torch.core import unet3d
+
+    want = unet3d.leaf_shapes(cfg)
+    got = {path: tuple(np.shape(a)) for path, a in tree.leaves_with_paths(params)}
+    if got != want:
+        wrong = sorted(set(want.items()) ^ set(got.items()), key=str)
+        raise ValueError(f"not the params of {cfg}: leaves that differ (path, shape): {wrong[:4]}")
+    return params_from_numpy(params, device)

@@ -1,11 +1,11 @@
 """Serving tier: the engines (engine.py), the typed serving errors
 (errors.py), the continuous-batching request scheduler (scheduler.py),
-the deterministic load simulator (simulator.py), the resilience layer —
-retry/backoff, timeouts, hedging policy and the executor degradation
-ladder behind circuit breakers (resilience.py) — and the
-content-addressed artifact cache with integrity quarantine, single-flight
-coalescing and a fail-open breaker (cache.py). The replicated fleet is
-not ported yet (ROADMAP.md, Queue 1 item 13c)."""
+the deterministic load simulator (simulator.py), the replicated fleet
+behind a cache-affinity router (fleet.py), the resilience layer —
+retry/backoff, timeouts, hedging and the executor degradation ladder
+behind circuit breakers (resilience.py) — and the content-addressed
+artifact cache with integrity quarantine, single-flight coalescing and a
+fail-open breaker (cache.py)."""
 
 from repro_torch.serving.cache import (  # noqa: F401
     ArtifactCache,
@@ -15,7 +15,6 @@ from repro_torch.serving.cache import (  # noqa: F401
     artifact_key,
     content_hash,
 )
-
 from repro_torch.serving.errors import (  # noqa: F401
     EXECUTION_FAULT_TYPES,
     PERMANENT_FAULT,
@@ -34,6 +33,17 @@ from repro_torch.serving.errors import (  # noqa: F401
     ServingError,
     TransientExecutorError,
     classify,
+)
+from repro_torch.serving.fleet import (  # noqa: F401
+    FLEET_PRESETS,
+    ROUTER_POLICIES,
+    AutoscalerConfig,
+    Fleet,
+    FleetConfig,
+    FleetEvent,
+    FleetServiceModel,
+    fleet_preset,
+    simulate_fleet,
 )
 from repro_torch.serving.resilience import (  # noqa: F401
     CARD_LADDER,

@@ -276,7 +276,7 @@ class _CacheBreaker:
 
 class ArtifactCache:
     """The shared content-addressed artifact tier. One instance serves
-    one scheduler or (through a fleet, ROADMAP.md item 13c) many — the
+    one scheduler or (through a fleet, serving/fleet.py) many — the
     instance IS the shared tier.
 
     All state transitions are pure in (calls, fault plan, seed): the

@@ -137,9 +137,9 @@ class RetryPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class HedgePolicy:
-    """Straggler hedging (fleet-level; the port's fleet is ROADMAP.md
-    Queue 1 item 13c, so only its validation runs yet): when a queued
-    request's age exceeds ``max(min_age_s, p99_factor * p99)`` — p99
+    """Straggler hedging, run by the fleet (``serving/fleet.py``,
+    ``Fleet._maybe_hedge``; a single scheduler only validates it): when a
+    queued request's age exceeds ``max(min_age_s, p99_factor * p99)`` — p99
     taken over the last ``window`` served end-to-end latencies, once at
     least ``min_samples`` have been observed — a second copy is
     dispatched to another replica (never one already holding a copy).

@@ -1,7 +1,7 @@
 """Property suite for the port's artifact cache under seeded drives,
-after tests/test_cache_properties.py, on one scheduler (the reference's
-fleet drives wait for the port's fleet, ROADMAP.md Queue 1 item 13c).
-Each drive runs through the port and the reference on the same draws:
+after tests/test_cache_properties.py, on one scheduler and on a fleet
+sharing one cache tier. Each drive runs through the port and the
+reference on the same draws:
 
   * **pinned in-flight never evicted**: under any op sequence on a
     byte-pressured store a pinned placeholder survives until its leader
@@ -12,10 +12,12 @@ Each drive runs through the port and the reference on the same draws:
     execution and N-1 coalesced completions sharing the leader's
     checksum and status, as the reference's do;
   * **Zipf determinism**: ``zipf_content_id`` is the reference's draw for
-    draw, pure in (seed, index);
+    draw, pure in (seed, index); one seed gives byte-identical scheduler
+    and fleet summaries with the cache, skew and a fault storm live;
   * **conservation under cache-fault storms**: corruption, outage windows
     and slow consults never lose a request, corrupt bytes are never
-    served, and the summary equals the reference's.
+    served, and the summary equals the reference's, on one scheduler and
+    (every fid equal the reference's) on a fleet.
 
 Each ``_check_*`` body runs under hypothesis, derandomized and with no
 example database, and under a pinned grid."""
@@ -37,6 +39,7 @@ from repro_torch.serving import scheduler
 from repro_torch.serving import simulator as sim
 
 from test_torch_cache import PACKAGES, _drain_all, ok_record
+from test_torch_fleet import PORT, cached_cfg, port_run, run_both, same_fleet
 from test_torch_resilience import modeled_ref_engine, reference_names, to_reference  # noqa: F401  (fixture)
 from test_torch_scheduler import make_sched, ref_sched, vol
 from test_torch_serving_golden import reference_models  # noqa: F401  (fixture)
@@ -45,6 +48,8 @@ from test_torch_serving_golden import reference_models  # noqa: F401  (fixture)
 #: function-scoped fixtures are safe to share across them
 SETTINGS = dict(max_examples=5, deadline=None, database=None, derandomize=True,
                 suppress_health_check=[HealthCheck.function_scoped_fixture])
+#: a fleet storm costs several single-scheduler ones
+FLEET_SETTINGS = dict(SETTINGS, max_examples=2)
 
 
 def _cached_cfg(mod, cm, sched_mod, sim_mod, seed, burst_hz, skew, universe, corrupt_rate=0.0, outage=None,
@@ -179,6 +184,31 @@ def _check_same_seed_byte_identical(models, seed, skew):
     assert runs[0] == runs[1]
 
 
+def _check_fleet_conservation_under_cache_storm(models, seed, burst_hz, replicas, skew, corrupt_rate, outage):
+    rep, expect = run_both(models, cached_cfg, seed, burst_hz, replicas, skew, 96, corrupt_rate=corrupt_rate,
+                           outage=outage, capacity=512 * 1024, horizon_s=120.0)
+    same_fleet(rep, expect)
+    fl = rep.fleet
+    assert fl.conserved()
+    for r in fl.replicas:
+        assert r.sched.stats.conserved(), f"replica {r.id}: {r.sched.stats}"
+    s = rep.summary()
+    req = s["requests"]
+    assert req["arrived"] == (req["refused"] + req["no_replica"] + req["completed"] + req["demoted"]
+                              + sum(req["rejected"].values()) + s["cache"]["coalesced"])
+    assert s["cache"]["quarantined_served"] == 0
+    if corrupt_rate > 0.02:
+        assert s["cache"]["quarantined"] > 0
+    if outage is not None:
+        assert s["cache"]["unavailable"] > 0
+
+
+def _check_same_seed_fleet_byte_identical(models, seed, replicas, skew):
+    runs = [port_run(models, cached_cfg(PORT, seed, 30.0, replicas, skew, 128, corrupt_rate=0.05, outage=(60.0, 100.0),
+                                        slow_rate=0.02, horizon_s=160.0)).to_json() for _ in range(2)]
+    assert runs[0] == runs[1]
+
+
 # ------------------------------------------------- hypothesis exploration ---
 
 
@@ -213,6 +243,26 @@ def test_conservation_under_cache_storm(reference_models, reference_names, seed,
     _check_conservation_under_cache_storm(reference_models, seed, burst_hz, skew, corrupt_rate, outage)
 
 
+@settings(**FLEET_SETTINGS)
+@given(seed=st.integers(0, 2**31 - 1), replicas=st.integers(1, 3), skew=st.floats(0.8, 1.4))
+def test_same_seed_fleet_byte_identical(reference_models, seed, replicas, skew):  # noqa: F811
+    _check_same_seed_fleet_byte_identical(reference_models, seed, replicas, skew)
+
+
+@settings(**FLEET_SETTINGS)
+@given(
+    seed=st.integers(0, 2**31 - 1),
+    burst_hz=st.floats(10.0, 40.0),
+    replicas=st.integers(1, 4),
+    skew=st.floats(0.8, 1.5),
+    corrupt_rate=st.floats(0.0, 0.1),
+    outage=st.one_of(st.none(), st.just((60.0, 100.0))),
+)
+def test_fleet_conservation_under_cache_storm(reference_models, reference_names, seed, burst_hz, replicas,  # noqa: F811
+                                              skew, corrupt_rate, outage):
+    _check_fleet_conservation_under_cache_storm(reference_models, seed, burst_hz, replicas, skew, corrupt_rate, outage)
+
+
 # ------------------------------------------------- deterministic fallback ---
 
 
@@ -242,3 +292,16 @@ class TestGridFallback:
     @pytest.mark.parametrize("seed,skew", [(0, 1.1), (4, 0.9)])
     def test_same_seed_byte_identical(self, reference_models, seed, skew):  # noqa: F811
         _check_same_seed_byte_identical(reference_models, seed, skew)
+
+    @pytest.mark.parametrize("seed,replicas,skew", [(0, 2, 1.1), (5, 3, 0.9)])
+    def test_same_seed_fleet_byte_identical(self, reference_models, seed, replicas, skew):  # noqa: F811
+        _check_same_seed_fleet_byte_identical(reference_models, seed, replicas, skew)
+
+    @pytest.mark.parametrize(
+        "seed,burst_hz,replicas,skew,corrupt_rate,outage",
+        [(0, 30.0, 2, 1.1, 0.05, (60.0, 100.0)), (1, 40.0, 4, 1.3, 0.1, None)],
+    )
+    def test_fleet_conservation_under_cache_storm(self, reference_models, reference_names, seed, burst_hz,  # noqa: F811
+                                                  replicas, skew, corrupt_rate, outage):
+        _check_fleet_conservation_under_cache_storm(reference_models, seed, burst_hz, replicas, skew, corrupt_rate,
+                                                    outage)

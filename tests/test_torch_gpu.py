@@ -1389,3 +1389,71 @@ def test_pipeline_shard_devices_on_the_card(cuda):
         assert res.record.status == "ok", res.record.fail_type
     else:
         assert (res.record.status, res.record.fail_type) == ("fail", "shard_geometry")
+
+
+# ---------------------------------------------------------------- the fleet ---
+
+
+def test_executed_fleet_equals_submit_with_exact_launches(cuda):
+    """A 2-replica executed fleet at 32^3 under cache_affinity, each
+    replica's engine with its own copy of the weights: 4 fp32 requests
+    (auto) and 2 under cuda_megakernel in two waves, each segmentation
+    equal to submit's on a standalone engine, served once, and K1 and K2
+    launched exactly once a layer (a segment) of each record; the second
+    wave's fp32 requests land on the replica warm for them."""
+    from repro_torch.serving.engine import SegmentationEngine
+    from repro_torch.serving.fleet import Fleet, FleetConfig
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    cfg = meshnet.PAPER_MODELS["gwm_light"]
+    params = _params_with_bn(cfg, 31, cuda)
+    pc = pipeline.PipelineConfig(model=cfg, volume_shape=(32, 32, 32), min_component_size=8)
+
+    def factory():
+        return SegmentationEngine(tree.map(torch.clone, params), pc, device=cuda)
+
+    fl = Fleet(FleetConfig(replicas=2, execute=True, scheduler=SchedulerConfig(max_batch_requests=4)),
+               engine_factory=factory)
+    vols = [mri.generate(torch.Generator().manual_seed(32 + i), mri.SyntheticMRIConfig(shape=(32, 32, 32)),
+                         device=cuda)[0] for i in range(6)]
+    waves = [[(vols[0], None), (vols[1], "cuda_megakernel")],
+             [(vols[2], None), (vols[3], None), (vols[4], None), (vols[5], "cuda_megakernel")]]
+    asked = {}
+    before = _launch_counts()
+    for wave in waves:
+        for v, ex in wave:
+            asked[fl.submit(v, executor=ex)] = (v, ex)
+        fl.drain()
+    after = _launch_counts()
+    segs = len(mk.plan_for_config(cfg, (32, 32, 32)).segments)
+    assert after[0] - before[0] == 4 * len(cfg.dilations) and after[2] - before[2] == 2 * segs
+    assert after[1] == before[1] and after[3] == before[3]
+    assert fl.conserved() and fl.affinity_hits == 4 and fl.cold_compiles == sum(len(r.warm) for r in fl.replicas)
+    standalone = factory()
+    for e in fl.ledger:
+        v, ex = asked[e.fid]
+        rec = e.completion.record
+        assert (e.completions_seen, e.outcome, rec.status) == (1, "completed", "ok")
+        assert rec.executor == (ex or "cuda_fused") and rec.replica_id == e.replica
+        expect = standalone.submit(v, mode=rec.mode, executor=rec.executor, precision=rec.precision)
+        assert torch.equal(e.completion.result.segmentation, expect.segmentation)
+    fused = {e.replica for e in fl.ledger if asked[e.fid][1] is None}
+    assert len(fused) == 1  # every fp32 auto request on the replica warm for it
+    ptrs = [e.completion.result.segmentation.data_ptr() for e in fl.ledger]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+def test_unet3d_on_the_card_matches_the_cpu(cuda):
+    """The U-Net baseline (base 8, 2 levels) at 32^3, batch 2: the card's
+    logits within 1e-4 of the CPU forward's on the same weights, relative
+    to the largest, TF32 off; argmax agreeing on >= 99.99 %."""
+    from repro_torch.core import unet3d
+
+    ucfg = unet3d.UNet3DConfig(base_channels=8, levels=2)
+    g = torch.Generator().manual_seed(41)
+    params = unet3d.init(ucfg, generator=g, device="cpu")
+    x = torch.rand((2, 32, 32, 32), generator=g)
+    expect = unet3d.apply(params, x, ucfg)
+    got = unet3d.apply(tree.map(lambda t: t.to(cuda), params), x.to(cuda), ucfg).cpu()
+    assert float((got - expect).abs().max()) <= 1e-4 * float(expect.abs().max())
+    assert float((got.argmax(-1) == expect.argmax(-1)).float().mean()) >= 0.9999

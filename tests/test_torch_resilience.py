@@ -16,15 +16,17 @@ reference's, after tests/test_resilience.py.
   * the scheduler: on a modeled trace of a few hundred arrivals with
     resilience and the cache on, each request's outcome, attempt, fail
     type, executor rung, ``cache_hit`` and finish time equal the
-    reference's.
-
-The fleet's tests (the fault-storm golden, hedging in the fleet) wait for
-the port's fleet (ROADMAP.md, Queue 1 item 13c)."""
+    reference's;
+  * the fleet's fault storm (serving/fleet.py, ``fleet_faultstorm``): the
+    reference's golden reproduced byte for byte under its byte models and
+    names, the port's golden (``tests/golden/torch_fleet_faultstorm.json``)
+    and what it must show, and its determinism."""
 
 import collections
 import dataclasses
 import functools
 import json
+import os
 import types
 
 import pytest
@@ -37,6 +39,7 @@ from repro.serving import simulator as ref_sim
 from repro.serving.errors import ResilienceConfigError as RefResilienceConfigError
 from repro_torch.core import executors
 from repro_torch.serving import cache as cache_mod
+from repro_torch.serving import fleet
 from repro_torch.serving import resilience as res
 from repro_torch.serving import scheduler
 from repro_torch.serving import simulator as sim
@@ -507,3 +510,59 @@ def test_scheduler_decisions_on_a_nonzero_replica_equal_the_references(
 
     assert 5 in rules(rep) and 6 not in rules(rep)
     assert 5 not in rules(base)
+
+
+# ------------------------------------------------ the fleet's fault storm ---
+
+
+def _fleet_faultstorm(engine):
+    cfg = fleet.fleet_preset("fleet_faultstorm", seed=0)
+    return cfg, lambda: fleet.simulate_fleet(cfg, engine).summary()
+
+
+def _golden(name):
+    with open(os.path.join(os.path.dirname(__file__), "golden", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def test_faultstorm_golden_trace_matches(reference_models, reference_names):  # noqa: F811
+    """The reference's fleet_faultstorm golden, byte for byte, from the
+    port's fleet on the reference's byte models, bandwidths and names (the
+    poisoned rule names the port's ``torch``, the reference's ``xla``)."""
+    engine, _ = reference_models
+    cfg, run = _fleet_faultstorm(engine)
+    cfg.service = dataclasses.replace(cfg.service, hbm_gbps=819.0, nvlink_gbps=90.0)
+    fresh = to_reference(run())
+    assert _canonical(fresh) == _canonical(_golden("fleet_faultstorm")), json.dumps(fresh, indent=1, sort_keys=True)
+
+
+def test_port_faultstorm_golden_matches():
+    _, run = _fleet_faultstorm(lambda: sim.reference_engine(device="cpu"))
+    fresh = run()
+    assert _canonical(fresh) == _canonical(_golden("torch_fleet_faultstorm")), json.dumps(fresh, indent=1,
+                                                                                           sort_keys=True)
+
+
+def test_faultstorm_golden_acceptance_claims():
+    """What the port's storm must show (the reference's claims): at least
+    5 % transients recovered at >= 90 %, the poisoned signature's breakers
+    tripped and its requests served demoted, hedging against the
+    straggler, nothing lost and nothing served twice."""
+    g = _golden("torch_fleet_faultstorm")
+    req, r = g["requests"], g["resilience"]
+    assert req["conserved"] is True and req["served_twice"] == 0
+    assert req["arrived"] == (req["refused"] + req["no_replica"] + req["completed"] + req["demoted"]
+                              + sum(req["rejected"].values()))
+    assert r["faults"]["transient"] > 0.05 * req["arrived"] * 0.5
+    assert r["retries"] > 0 and r["recovery_rate"] >= 0.9
+    assert r["breaker"]["trips"] >= 1
+    assert any("torch/int8w/32x32x32" in s for s in r["breaker"]["open_signatures"])
+    assert r["rungs"].get("streaming/streaming", 0) > 0
+    assert r["hedges"] > 0 and r["hedge_cancelled"] + r["hedge_wins"] > 0
+    for rep in g["per_replica"]:
+        assert rep["admitted"] == rep["completed"] + rep["demoted"] + rep["rejected"] + rep["evacuated"]
+
+
+def test_faultstorm_is_deterministic():
+    _, run = _fleet_faultstorm(lambda: sim.reference_engine(device="cpu"))
+    assert _canonical(run()) == _canonical(run())
